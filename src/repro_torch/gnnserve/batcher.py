@@ -1,0 +1,98 @@
+"""Continuous batcher for GNN vertex queries (copy of
+``repro/gnnserve/batcher.py`` without the process-wide metrics).
+
+The GNN analog of ``core/serving.py``'s lane-based ContinuousBatcher:
+queries arrive one at a time, the batcher coalesces them into
+fixed-size forward batches, and — because serving is depth-escalating —
+a "lane" here is a (request, pending depth) pair.  Each :meth:`step`
+picks the depth with the most waiting requests and runs ONE forward for
+up to ``batch_size`` of them: confident requests retire, the rest
+re-queue at the next depth in the schedule.  Fresh arrivals therefore
+mix freely with escalated survivors, exactly like new sequences joining
+in-flight decodes in the LLM batcher.
+
+No request is ever dropped or duplicated: a request id lives in exactly
+one depth queue until a step returns its result (pinned by the JAX
+package's bursty-drain test and this port's serving test).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+
+@dataclasses.dataclass
+class ServedResult:
+    rid: int
+    vid: int
+    pred: int
+    conf: float
+    depth: int          # depth the request exited at
+    t_submit: float
+    t_done: float
+
+    @property
+    def latency(self) -> float:
+        return self.t_done - self.t_submit
+
+
+class QueryBatcher:
+    """Batches queries for ONE shard's engine (route per-shard queries
+    here via :class:`repro_torch.gnnserve.engine.ServingPlane`)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.batch_size = engine.batch_size
+        # one FIFO per schedule depth; entries (rid, local_id, vid,
+        # threshold, t_submit)
+        self._queues = {d: collections.deque()
+                        for d in engine.depth_schedule}
+        self._next_rid = 0
+        self.served = 0
+        self.exits_by_depth: dict[int, int] = {}
+
+    def submit(self, vid: int, threshold: float = 1.0, *,
+               rid: int | None = None) -> int:
+        """Enqueue one query; returns its request id."""
+        if rid is None:
+            rid = self._next_rid
+            self._next_rid = rid + 1
+        lid = self.engine.local_id(vid)
+        d0 = self.engine.depth_schedule[0]
+        self._queues[d0].append((rid, lid, int(vid), float(threshold),
+                                 time.perf_counter()))
+        return rid
+
+    def pending(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def step(self) -> list[ServedResult]:
+        """One fixed-size forward at the busiest depth.  Returns the
+        requests that retired this step (confident, or at full depth)."""
+        depth = max(self._queues, key=lambda d: len(self._queues[d]))
+        q = self._queues[depth]
+        if not q:
+            return []
+        take = [q.popleft() for _ in range(min(self.batch_size, len(q)))]
+        seeds = [t[1] for t in take]
+        thrs = [t[3] for t in take]
+        preds, confs, depths = self.engine.predict_at_depth(seeds, thrs,
+                                                            depth)
+        now = time.perf_counter()
+        out = []
+        sched = self.engine.depth_schedule
+        for i, (rid, lid, vid, thr, t0) in enumerate(take):
+            if depths[i] >= 0:       # retired at `depth`
+                res = ServedResult(rid=rid, vid=vid, pred=int(preds[i]),
+                                   conf=float(confs[i]), depth=depth,
+                                   t_submit=t0, t_done=now)
+                self.served += 1
+                self.exits_by_depth[depth] = \
+                    self.exits_by_depth.get(depth, 0) + 1
+                out.append(res)
+            else:                    # escalate to the next schedule depth
+                nxt = sched[sched.index(depth) + 1]
+                self._queues[nxt].append((rid, lid, vid, thr, t0))
+        return out

@@ -25,6 +25,9 @@ def pytest_configure(config):
                    "CLI smokes, full multi-round thread deployments) and "
                    "≥100k-vertex graph-plane builds — run in CI's "
                    "control-plane / graph-plane jobs, not tier1")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device and nvcc (the PyTorch port's "
+                   "kernels); skips elsewhere")
 
 
 @pytest.fixture(scope="session")
