@@ -34,6 +34,31 @@ Phases, each of which fails the run:
 5. Checks: every request answered exactly once, threshold-1.0 answers
    equal offline_predict, every kernel launched on the slice, finite
    confidences, and a clean ``torch.cuda.synchronize()``.
+6. Training slice: the same graph and partition, 4 clients, Strategy OPG
+   (retention P_4, scored pruning to the top 25 % by degree) with the
+   int8 codec, GraphConv L=3 hidden 32 from a seeded init, Adam lr 1e-2.
+   The launch counters are zeroed just before the trainer is built (the
+   scored pruning runs the top-k count kernel) and read after one short
+   round: bootstrap push; per client a cache fill, the first 32
+   minibatches of its sampler's epoch through ``train_minibatches`` and
+   the push plan; then the pushes, FedAvg and evaluation.  Every loss
+   must be finite, each client's last 8 losses must average below its
+   first 8, and all seven kernels must have launched.  Set-up seconds by
+   phase, per-step sampling / block copy / forward+backward+Adam times,
+   the device's busy share over 16 profiled steps and the peak memory
+   are printed; the trained model is then published and served once to
+   count early exits.
+7. Training kernels: the aggregation's backward and the top-k count
+   against their plain versions at the slice's shapes (a minibatch's
+   layer-2 block, layer 2 of ``full_propagate`` on client 0, client 0's
+   101,526 scores) and at a Papers-like 40M scores: the backward within
+   1e-6 of each row's summed term magnitudes (atomics add in no fixed
+   order), the masks bit-equal, ``top_fraction`` equal to an
+   ``np.lexsort`` selection.
+8. Training reference: one round of the same strategy on a small graph
+   on the card and on the CPU (plain versions) from the same seed; byte
+   counts and RPC sizes equal, loss within 1 % and accuracy within 2
+   points.
 
 The line before the last is the card's name and power limit; the one
 before it is the kernels' JSON report; the last line is
@@ -42,6 +67,9 @@ before it is the kernels' JSON report; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -50,8 +78,16 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 TOL = 1e-6
+DEV = "cuda"
 SCALE = 58.0                  # reddit preset scale: 232,000 vertices
 N_QUERIES = 2048
+TRAIN_STEPS = 32              # minibatches per client in the short round
+PROFILED_STEPS = 16
+#: the kernels the serving path runs; training adds the aggregation's
+#: backward and the top-k count
+SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "gather_quantize",
+                 "dequant_scatter", "gnn_aggregate")
+PAPERS_SCORES = 40_000_000    # remote-vertex scores at Papers scale
 
 
 class SmokeFailure(Exception):
@@ -86,27 +122,89 @@ def time_ms(torch, fn, *, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernel: str, *, iters: int = 10) -> float:
-    """Mean device milliseconds of one launch of CUDA kernel ``kernel``
-    while ``fn`` runs ``iters`` times (torch.profiler), without the host
-    time that back-to-back calls of a small kernel are bound by."""
+def device_events(torch, run, sessions: int = 1) -> list:
+    """The device-side events (kernels, copies) of ``run()`` under
+    torch.profiler.  The card's CUPTI tracing has come back empty in some
+    runs, so up to ``sessions`` sessions are tried before giving up
+    (an empty list: "not measured")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            return evs
+    return []
+
+
+def device_ms(torch, fn, kernel: str, *, iters: int = 10,
+              per_call: bool = False) -> float | None:
+    """Mean device milliseconds of one launch of CUDA kernel ``kernel``
+    (or, with ``per_call``, of all its launches in one call of ``fn``)
+    while ``fn`` runs ``iters`` times (torch.profiler), without the host
+    time that back-to-back calls of a small kernel are bound by; None
+    when the profiler saw no device event at all."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(hits) > 0, f"the profiler saw no {kernel} launch")
-    return sum(e.time_range.elapsed_us() for e in hits) / len(hits) / 1e3
+    evs = device_events(torch, run, sessions=2)
+    if not evs:
+        print(f"device_ms {kernel}: the profiler saw no device event; "
+              "not measured", flush=True)
+        return None
+    hits = [e for e in evs if kernel in e.name]
+    check(len(hits) > 0, f"the profiler saw no {kernel} launch among "
+                         f"{sorted({e.name[:80] for e in evs})[:12]}")
+    return sum(e.time_range.elapsed_us() for e in hits) \
+        / (iters if per_call else len(hits)) / 1e3
+
+
+def busy_share(evs: list, wall: float) -> dict:
+    """Device busy time and share of a profiled window from its device
+    events, with the top items by name; None when none were seen."""
+    if not evs:
+        return {"device_busy_s": None, "device_busy_share": None,
+                "device_idle_share": None, "top_device_ms": {}}
+    per_name: dict[str, float] = {}
+    for e in evs:
+        key = e.name[:60]
+        per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
+    busy = sum(per_name.values()) / 1e6
+    top = sorted(per_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    return {"device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_idle_share": 1.0 - busy / wall,
+            "top_device_ms": {k: v / 1e3 for k, v in top}}
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def max_err(a, b) -> float:
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def add_entry(report: list, name, source, replaces, err, shape, ms,
+              plain_ms, nbytes, library_ms=None, **extra) -> None:
+    """One kernel's row of the JSON report (launches filled in later)."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
+           "bound_by": "bytes", "library_ms": library_ms, **extra}
+    print(f"kernel {name}: shape {shape} max|d| {err:.3g} "
+          f"ms {ms:.4f} device_ms {extra['device_ms']} plain_ms "
+          f"{plain_ms:.4f} bound_ms {row['bound_ms']:.4f} library_ms "
+          f"{library_ms}", flush=True)
+    report.append(row)
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -133,22 +231,8 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
             x[n // 2] = 0.0                        # an all-zero row
         return x.to(dev)
 
-    def max_err(a, b):
-        if a.numel() == 0:
-            return 0.0
-        return float((a.double() - b.double()).abs().max())
-
-    def entry(name, source, replaces, err, shape, ms, plain_ms, nbytes,
-              library_ms=None, **extra):
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
-               "bound_by": "bytes", "library_ms": library_ms, **extra}
-        print(f"kernel {name}: shape {shape} max|d| {err:.3g} "
-              f"ms {ms:.4f} device_ms {extra['device_ms']:.4f} plain_ms "
-              f"{plain_ms:.4f} bound_ms {row['bound_ms']:.4f} library_ms "
-              f"{library_ms}", flush=True)
-        report.append(row)
+    def entry(*args, **kw):
+        add_entry(report, *args, **kw)
 
     # quantize_int8 / dequantize_int8: the published rows of one client
     for n, h in ((n_local, hidden), (257, 100), (300, 16), (0, hidden)):
@@ -399,21 +483,30 @@ def reference_phase(torch, np) -> None:
           f"prediction agreement {agree:.4f}", flush=True)
 
 
-def timed_method(obj, name: str, log: list) -> None:
-    """Wrap ``obj.name`` so each call's host seconds land in ``log``;
-    ``untime`` takes the wrapper off again."""
-    inner = getattr(obj, name)
+@contextlib.contextmanager
+def timed(owner, name: str, log: list, args_log: list | None = None):
+    """Within the block, each call of ``owner.name`` (a module's function,
+    a class's method or an instance's bound method) appends its host
+    seconds to ``log`` and, given ``args_log``, its positional
+    arguments."""
+    inner = getattr(owner, name)
+    own = name in vars(owner)
 
     def wrapper(*args, **kw):
         t = time.perf_counter()
         out = inner(*args, **kw)
         log.append(time.perf_counter() - t)
+        if args_log is not None:
+            args_log.append(args)
         return out
-    setattr(obj, name, wrapper)
-
-
-def untime(obj, name: str) -> None:
-    delattr(obj, name)            # the class's method shows through again
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, inner)
+        else:
+            delattr(owner, name)   # the class's method shows through again
 
 
 def breakdown(torch, np, plane, num_vertices: int, n: int) -> dict:
@@ -424,22 +517,19 @@ def breakdown(torch, np, plane, num_vertices: int, n: int) -> dict:
     fwd_s: list[float] = []
     plan_s: list[float] = []
     cache_s: list[float] = []
-    for eng in plane.engines.values():
-        timed_method(eng, "predict_at_depth", fwd_s)
-        timed_method(eng, "_plan", plan_s)
-    timed_method(plane.cache, "get", cache_s)
     vids, thrs = zipf_queries(np, num_vertices, n, 12)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for v, t in zip(vids, thrs):
-        plane.submit(int(v), float(t))
-    plane.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    for eng in plane.engines.values():
-        untime(eng, "predict_at_depth")
-        untime(eng, "_plan")
-    untime(plane.cache, "get")
+    with contextlib.ExitStack() as stack:
+        for eng in plane.engines.values():
+            stack.enter_context(timed(eng, "predict_at_depth", fwd_s))
+            stack.enter_context(timed(eng, "_plan", plan_s))
+        stack.enter_context(timed(plane.cache, "get", cache_s))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v, t in zip(vids, thrs):
+            plane.submit(int(v), float(t))
+        plane.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     fwd = np.array(fwd_s) * 1e3
     return {"queries": n, "window_s": wall, "forwards": len(fwd),
             "forward_ms_p50": float(np.percentile(fwd, 50)),
@@ -451,33 +541,21 @@ def breakdown(torch, np, plane, num_vertices: int, n: int) -> dict:
 
 def device_busy(torch, np, plane, num_vertices: int, n: int) -> dict:
     """Serve ``n`` more queries under torch.profiler: the share of the
-    window's wall time the card spent in kernels, and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    window's wall time the card spent in kernels and copies, and the top
+    items (device-side events only: the host ops that launched them
+    carry the same time again)."""
     vids, thrs = zipf_queries(np, num_vertices, n, 13)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    wall: list[float] = []
+
+    def run():
         t0 = time.perf_counter()
         for v, t in zip(vids, thrs):
             plane.submit(int(v), float(t))
         plane.drain()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    # device-side events only (kernels, copies): the host ops that
-    # launched them carry the same time again
-    per_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:60]
-            per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
-    busy = sum(per_name.values()) / 1e6
-    top = sorted(per_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
-    return {"window_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
-            "top_device_ms": {k: v / 1e3 for k, v in top}}
+        wall.append(time.perf_counter() - t0)
+    evs = device_events(torch, run)
+    return {"window_s": wall[0], **busy_share(evs, wall[0])}
 
 
 def slice_phase(torch, np, g, part, shards) -> dict:
@@ -508,8 +586,8 @@ def slice_phase(torch, np, g, part, shards) -> dict:
         check(r.rid not in by_rid, f"request {r.rid} answered twice")
         by_rid[r.rid] = r
     check(sorted(by_rid) == sorted(rids), "requests lost or invented")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the slice")
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the slice")
     confs = np.array([r.conf for r in results])
     check(bool(np.all(np.isfinite(confs)) and np.all(confs > 0)
                and np.all(confs <= 1.0)), "confidences out of (0, 1]")
@@ -536,6 +614,358 @@ def slice_phase(torch, np, g, part, shards) -> dict:
         "profiled_serve": busy,
         "launches": counts,
     }
+
+
+# -- phases 6-8: training ------------------------------------------------------
+
+def opg_int8():
+    from repro_torch.core.strategies import default_strategies
+
+    return dataclasses.replace(default_strategies()["OPG"], codec="int8",
+                               score_kind="degree")
+
+
+def with_bound(case: dict) -> dict:
+    """A kernel case's numbers with its bytes turned into ``bound_ms``."""
+    out = {k: v for k, v in case.items() if k != "nbytes"}
+    out["bound_ms"] = bound_ms(case["nbytes"])
+    return out
+
+
+def percentiles(np, xs) -> dict:
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "mean": float(a.mean())}
+
+
+def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
+    """Build the trainer, bootstrap, and run one short round through the
+    trainer's own code; returns the measurements, the trainer and the
+    scores of client 0's first ``top_fraction`` call."""
+    from repro_torch.core import federated as fed
+    from repro_torch.gnnserve import build_serving
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import init_gnn
+
+    setup: dict[str, list] = {k: [] for k in (
+        "shards_s", "scores_s", "top_fraction_s", "client_state_s",
+        "eval_state_s")}
+    topf_args: list = []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_main = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        T = fed.FederatedGNNTrainer
+        for owner, name, key, args in (
+                (fed, "make_client_shards", "shards_s", None),
+                (fed, "score_remote_nodes", "scores_s", None),
+                (fed, "top_fraction", "top_fraction_s", topf_args),
+                (T, "_build_client_state", "client_state_s", None),
+                (T, "_build_eval_state", "eval_state_s", None)):
+            stack.enter_context(timed(owner, name, setup[key], args))
+        model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                         generator=torch.Generator().manual_seed(0),
+                         device=DEV)
+        trainer = T(g, 4, opg_int8(), part=part, model=model,
+                    device=DEV)
+        torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t_main
+    t0 = time.perf_counter()
+    trainer.pretrain_round()
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+
+    sample_ms, copy_ms, compute_ms, step_ms = [], [], [], []
+    copied: list = []
+    inner_copy = fed.blocks_to_arrays
+
+    def copy_blocks(mb, device):
+        t = time.perf_counter()
+        out = inner_copy(mb, device)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t) * 1e3)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        copied.append(ev)
+        return out
+
+    results, losses, fill_s, push_s, iters = [], {}, [], [], {}
+    fed.blocks_to_arrays = copy_blocks
+    try:
+        t_loop = time.perf_counter()
+        for ci in range(4):
+            t0 = time.perf_counter()
+            trainer._fill_cache(ci)
+            torch.cuda.synchronize()
+            fill_s.append(time.perf_counter() - t0)
+            it = iters[ci] = trainer.samplers[ci].epoch()
+            params = copy.deepcopy(trainer.model)
+            opt_state = trainer.opt.init(params.leaves())
+            ls = []
+            for _ in range(TRAIN_STEPS):
+                t_step = time.perf_counter()
+                mb = next(it)
+                sample_ms.append((time.perf_counter() - t_step) * 1e3)
+                params, opt_state, out = trainer.train_minibatches(
+                    ci, params, opt_state, [mb])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+                compute_ms.append(copied[-1].elapsed_time(end))
+                step_ms.append((time.perf_counter() - t_step) * 1e3)
+                ls += out
+            t0 = time.perf_counter()
+            plan, _, _ = trainer._compute_push(ci, params)
+            torch.cuda.synchronize()
+            push_s.append(time.perf_counter() - t0)
+            losses[ci] = [float(x) for x in ls]
+            results.append(fed.ClientRoundResult(
+                client_id=ci, params=params, phases=fed.PhaseTimes(),
+                rpc_sizes=[], push_plan=plan,
+                weight=float(len(trainer.shards[ci].train_vertices())),
+                loss=losses[ci][-1], client_time=0.0))
+        loop_s = time.perf_counter() - t_loop
+    finally:
+        fed.blocks_to_arrays = inner_copy
+    t0 = time.perf_counter()
+    for res in results:
+        if res.push_plan is not None:
+            trainer.ex_clients[res.client_id].apply_push(res.push_plan)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    eval_s: list = []
+    with timed(trainer, "evaluate", eval_s):
+        t0 = time.perf_counter()
+        acc = trainer.aggregate(results)
+        torch.cuda.synchronize()
+        aggregate_s = time.perf_counter() - t0
+    main_s = time.perf_counter() - t_main
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    for ci, ls in losses.items():
+        check(all(np.isfinite(ls)), f"client {ci}: a loss is not finite")
+        first, last = np.mean(ls[:8]), np.mean(ls[-8:])
+        check(last < first, f"client {ci}: loss did not fall "
+                            f"({first:.4f} -> {last:.4f})")
+    for name, c in counts.items():
+        check(c > 0, f"kernel {name} never launched on the training slice")
+    check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
+
+    # device busy share over PROFILED_STEPS steps of client 0, batches
+    # sampled beforehand (the window holds the copy and the step only)
+    batches = [next(iters[0]) for _ in range(PROFILED_STEPS)]
+    params = copy.deepcopy(trainer.model)
+    opt_state = trainer.opt.init(params.leaves())
+    wall: list[float] = []
+
+    def run():
+        t0 = time.perf_counter()
+        trainer.train_minibatches(0, params, opt_state, batches)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    evs = device_events(torch, run)
+    window = {"steps": PROFILED_STEPS, "window_s": wall[0],
+              **busy_share(evs, wall[0])}
+
+    # does the trained model answer any query at depth 1 yet?
+    plane = build_serving(trainer.export_for_serving(), cache_rows=100_000,
+                          serve_fanout=10, batch_size=64,
+                          depth_schedule=[1, 3], device=DEV)
+    vids, _ = zipf_queries(np, g.num_vertices, 512, 21)
+    for v in vids:
+        plane.submit(int(v), 0.5)
+    served = plane.drain()
+    check(len(served) == len(vids), "trained model: requests lost")
+    torch.cuda.synchronize()
+
+    n_steps = len(step_ms)
+    out = {
+        "strategy": opg_int8().describe(),
+        "setup_s": {"construct_s": construct_s,
+                    **{k: float(sum(v)) for k, v in setup.items()},
+                    "shard_builds": len(setup["shards_s"]),
+                    "pretrain_round_s": pretrain_s},
+        "shards": [{"local": sh.num_local, "remote": sh.num_remote,
+                    "all_remote": len(sh.all_pull_nodes),
+                    "push": len(sh.push_nodes),
+                    "train": len(sh.train_vertices()),
+                    "edges": int(sh.indptr[-1])} for sh in trainer.shards],
+        "steps": n_steps,
+        "step_ms": percentiles(np, step_ms),
+        "sample_ms": percentiles(np, sample_ms),
+        "copy_ms": percentiles(np, copy_ms),
+        "fwd_bwd_adam_ms": percentiles(np, compute_ms),
+        "steps_per_s": n_steps / sum(step_ms) * 1e3,
+        "train_loop_s": loop_s,
+        "fill_cache_s": fill_s, "push_compute_s": push_s,
+        "apply_push_s": apply_s, "aggregate_s": aggregate_s,
+        "fedavg_s": aggregate_s - eval_s[0], "evaluate_s": eval_s[0],
+        "main_path_s": main_s, "accuracy": acc,
+        "loss_first8": {ci: float(np.mean(v[:8])) for ci, v in losses.items()},
+        "loss_last8": {ci: float(np.mean(v[-8:])) for ci, v in losses.items()},
+        "peak_mem_gb": peak_gb,
+        "profiled_steps": window,
+        "trained_serving_exits_at_0.5": plane.stats()["exits_by_depth"],
+    }
+    return out, counts, trainer, topf_args[0][0]
+
+
+def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
+    """The aggregation's backward and the top-k count kernel against their
+    plain versions at the training slice's shapes."""
+    from repro_torch.core.pruning import top_fraction
+    from repro_torch.kernels import gnn_aggregate as agg_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.gnn import blocks_to_arrays
+
+    dev = DEV
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    hidden = trainer.hidden
+    report: list = []
+
+    def bwd_case(n_src, e_src, e_dst, mask, n_dst):
+        indptr, indices = agg_mod.csr_from_edges(n_src, e_src, e_dst, mask,
+                                                 n_dst)
+        cnt = (indptr[1:] - indptr[:-1]).to(torch.float32)
+        g = torch.randn((n_dst, hidden), generator=gen).to(dev)
+        got = agg_mod.segment_mean_csr_bwd(g, indptr, indices, cnt, n_src)
+        want = ref.segment_mean_backward(g, e_src, e_dst, mask, cnt, n_src)
+        mag = ref.segment_mean_backward(g.abs(), e_src, e_dst, mask, cnt,
+                                        n_src)
+        err = max_err(got, want)
+        check(bool(((got - want).abs() <= TOL * mag + TOL).all()),
+              f"segment_mean_csr_bwd off by {err} at {n_src}->{n_dst}")
+        kept = int(indices.shape[0])
+        scaled = (g / cnt.clamp_min(1.0)[:, None])[e_dst[mask].long()]
+        src_kept = indices.long()
+        lib_out = torch.zeros((n_src, hidden), device=dev)
+        return {
+            "err": err, "shape": (n_src, hidden, n_dst, int(e_src.shape[0])),
+            "kept_edges": kept,
+            "ms": time_ms(torch, lambda: agg_mod.segment_mean_csr_bwd(
+                g, indptr, indices, cnt, n_src)),
+            "plain_ms": time_ms(torch, lambda: ref.segment_mean_backward(
+                g, e_src, e_dst, mask, cnt, n_src)),
+            "library_ms": time_ms(torch, lambda: lib_out.index_add_(
+                0, src_kept, scaled)),
+            "device_ms": device_ms(torch, lambda: agg_mod.segment_mean_csr_bwd(
+                g, indptr, indices, cnt, n_src),
+                "segment_mean_csr_bwd_kernel"),
+            # grad_mean and cnt read once, indptr and the kept edges'
+            # int32 ids, grad_src written once
+            "nbytes": n_dst * hidden * 4 + n_dst * 4 + (n_dst + 1) * 8
+            + kept * 4 + n_src * hidden * 4,
+        }
+
+    # layer 2 of a full-width minibatch (the train step's shape)
+    mb = next(iter(trainer.samplers[0].epoch()))
+    blk = blocks_to_arrays(mb, dev)["blocks"][1]
+    b = mb.blocks[1]
+    step = bwd_case(b.p_src, blk["edge_src"], blk["edge_dst"],
+                    blk["edge_mask"], b.p_dst)
+    # layer 2 of full_propagate on client 0 (local rows + cached remotes)
+    arr = trainer.shard_arrays[0]
+    n_src = arr["num_local"] + trainer._caches[0][0].shape[0]
+    full = bwd_case(n_src, arr["edge_src"], arr["edge_dst"],
+                    torch.ones_like(arr["src_is_remote"]), arr["num_local"])
+    add_entry(report, "segment_mean_bwd",
+              "src/repro_torch/csrc/segment_mean_csr_bwd.cu",
+              "src/repro/kernels/gnn_aggregate.py:69 (backward of)",
+              max(step["err"], full["err"]), step["shape"], step["ms"],
+              step["plain_ms"], step["nbytes"],
+              library_ms=step["library_ms"], device_ms=step["device_ms"],
+              kept_edges=step["kept_edges"],
+              full_propagate=with_bound(full))
+    print("kernel segment_mean_bwd at full_propagate: "
+          + json.dumps(report[-1]["full_propagate"]), flush=True)
+
+    def topk_case(scores_np, frac, iters):
+        n = len(scores_np)
+        k = int(np.ceil(frac * n))
+        s = torch.from_numpy(scores_np.astype(np.float32)).to(dev)
+        got = ops.topk_mask(s, k)
+        check(torch.equal(got, ref.topk_mask(s, k)),
+              f"topk_mask differs from plain at n={n}")
+        thr = s[n // 3].reshape(())
+        check(int(ops.count_ge(s, thr)) == int((s >= thr).sum()),
+              f"count_ge differs from plain at n={n}")
+        sel = top_fraction(scores_np, frac, device=dev)
+        order = np.lexsort((np.arange(n), -scores_np))
+        check(np.array_equal(sel, np.sort(order[:k])),
+              f"top_fraction differs from the lexsort selection at n={n}")
+        lib_mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        return {
+            "shape": (n, k), "candidates": int(got.sum()),
+            "ms": time_ms(torch, lambda: ops.topk_mask(s, k), iters=iters),
+            "plain_ms": time_ms(torch, lambda: ref.topk_mask(s, k),
+                                iters=iters),
+            "library_ms": time_ms(torch, lambda: lib_mask.scatter_(
+                0, torch.topk(s, k).indices, True), iters=iters),
+            "device_ms": device_ms(torch, lambda: ops.topk_mask(s, k),
+                                   "count_ge_kernel", per_call=True),
+            "count_ms": time_ms(torch, lambda: ops.count_ge(s, thr),
+                                iters=iters),
+            "count_device_ms": device_ms(torch, lambda: ops.count_ge(s, thr),
+                                         "count_ge_kernel"),
+            "count_bound_ms": bound_ms(n * 4),
+            "nbytes": 25 * n * 4,      # 25 counting passes over the scores
+        }
+
+    frac = trainer.strategy.scored_prune_frac
+    mine = topk_case(np.asarray(scores0), frac, 50)
+    rng = np.random.default_rng(40)
+    papers = np.minimum(rng.zipf(2.0, PAPERS_SCORES), 10**6).astype(
+        np.float64)
+    big = topk_case(papers, frac, 10)
+    add_entry(report, "count_ge", "src/repro_torch/csrc/count_ge.cu",
+              "src/repro/kernels/topk_mask.py:46", 0.0, mine["shape"],
+              mine["ms"], mine["plain_ms"], mine["nbytes"],
+              library_ms=mine["library_ms"], device_ms=mine["device_ms"],
+              entry="topk_mask (25 count launches)",
+              candidates=mine["candidates"], count_ms=mine["count_ms"],
+              count_device_ms=mine["count_device_ms"],
+              count_bound_ms=mine["count_bound_ms"],
+              papers_40m=with_bound(big))
+    print("kernel count_ge at 40M: " + json.dumps(report[-1]["papers_40m"]),
+          flush=True)
+    torch.cuda.synchronize()
+    return report
+
+
+def train_reference_phase(torch, np) -> dict:
+    """One round of OPG + int8 on a small graph, on the card and on the
+    CPU (plain versions), from the same seeded model."""
+    from repro_torch.core.federated import FederatedGNNTrainer
+    from repro_torch.graphs import make_graph
+    from repro_torch.models.gnn import init_gnn
+
+    out = {}
+    for device in (DEV, "cpu"):
+        g = make_graph("reddit", scale=0.5, seed=1)
+        model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                         generator=torch.Generator().manual_seed(0),
+                         device=device)
+        tr = FederatedGNNTrainer(g, 4, opg_int8(), model=model,
+                                 device=device)
+        s = tr.train(1)[0]
+        log = tr.exchange.log
+        out[device] = (s, (log.bytes, log.rpcs, log.embeddings))
+    (sg, lg), (sc, lc) = out[DEV], out["cpu"]
+    check(lg == lc, f"training reference: transfer logs differ {lg} {lc}")
+    check(sg.pull_rpc_sizes == sc.pull_rpc_sizes
+          and sg.embeddings_stored == sc.embeddings_stored,
+          "training reference: RPC sizes or stored rows differ")
+    check(abs(sg.train_loss - sc.train_loss) <= 1e-2 * sc.train_loss,
+          f"training reference: loss {sg.train_loss} vs {sc.train_loss}")
+    check(abs(sg.accuracy - sc.accuracy) <= 0.02,
+          f"training reference: accuracy {sg.accuracy} vs {sc.accuracy}")
+    res = {"loss_cuda": sg.train_loss, "loss_cpu": sc.train_loss,
+           "acc_cuda": sg.accuracy, "acc_cpu": sc.accuracy,
+           "log_bytes_rpcs_embeddings": lg}
+    print(f"training reference: {json.dumps(res)}", flush=True)
+    return res
 
 
 def main() -> int:
@@ -573,11 +1003,20 @@ def main() -> int:
     report = kernel_phase(torch, np, shards, g.num_vertices)
     reference_phase(torch, np)
     res = slice_phase(torch, np, g, part, shards)
-    for row in report:
-        row["launches"] = res["launches"][row["name"]]
     print("slice: " + json.dumps({k: v for k, v in res.items()
                                   if k != "launches"}), flush=True)
-    print(f"launches: {json.dumps(res['launches'])}", flush=True)
+    train, train_counts, trainer, scores0 = train_slice_phase(
+        torch, np, g, part)
+    print("training slice: " + json.dumps(train), flush=True)
+    report += train_kernel_phase(torch, np, trainer, scores0)
+    del trainer
+    train_reference_phase(torch, np)
+    for row in report:
+        row["launches_serve"] = res["launches"].get(row["name"], 0)
+        row["launches_train"] = train_counts[row["name"]]
+        row["launches"] = row["launches_serve"] + row["launches_train"]
+    print(f"launches: serve {json.dumps(res['launches'])} train "
+          f"{json.dumps(train_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,6 +1,6 @@
 """Network cost model for the federated runtime (copy of the embedding
-part of ``repro/core/cost_model.py``; the transports price every transfer
-with it).
+and model-exchange part of ``repro/core/cost_model.py``; the transports
+price every transfer with it, the trainer the FedAvg round trip).
 
 The network is modelled after the paper's testbed: clients and the
 embedding/aggregation servers connected by 1 Gbps Ethernet, Redis-style
@@ -47,6 +47,12 @@ class NetworkModel:
             / self.bandwidth_bytes_per_s
         return wire + n_rpcs * self.rpc_overhead_s \
             + n_embeddings * layers * self.per_embedding_overhead_s
+
+    def model_transfer_time(self, n_params: int) -> float:
+        """Client↔aggregation-server model exchange (one direction) of
+        ``n_params`` raw fp32 weights."""
+        return n_params * self.bytes_per_scalar / self.bandwidth_bytes_per_s \
+            + self.rpc_overhead_s
 
 
 @dataclasses.dataclass

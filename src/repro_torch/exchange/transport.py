@@ -124,6 +124,10 @@ class InProcessTransport(Transport):
     def log(self) -> TransferLog:
         return self._log
 
+    @property
+    def num_embeddings_stored(self) -> int:
+        return self.server.num_embeddings_stored
+
 
 def make_transport(num_layers: int, hidden: int, *, kind: str = "inprocess",
                    net: NetworkModel | None = None,

@@ -1,12 +1,13 @@
-"""Graph substrate of the port: CSR graphs, synthetic presets, partitions
-and client shards (numpy, copied from ``repro.graphs``)."""
+"""Graph substrate of the port: CSR graphs, synthetic presets, partitions,
+client shards and the neighbour sampler (numpy, copied from
+``repro.graphs``)."""
 
 from .graph import Graph, from_edges
 from .partition import (ClientShard, assemble_shard, bfs_partition,
                         make_client_shards)
-from .sampler import Block
+from .sampler import Block, MiniBatch, NeighborSampler
 from .synthetic import PRESETS, make_graph
 
 __all__ = ["Graph", "from_edges", "ClientShard", "assemble_shard",
-           "bfs_partition", "make_client_shards", "Block", "PRESETS",
-           "make_graph"]
+           "bfs_partition", "make_client_shards", "Block", "MiniBatch",
+           "NeighborSampler", "PRESETS", "make_graph"]

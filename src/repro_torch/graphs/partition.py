@@ -1,6 +1,7 @@
 """Graph partitioning for cross-silo federated subgraph learning (the part
-of ``repro/graphs/partition.py`` the serving slice needs, copied so the
-same graph and seed give byte-identical partitions and shards).
+of ``repro/graphs/partition.py`` the serving and training slices need,
+copied so the same graph and seed give byte-identical partitions and
+shards).
 
 The paper uses METIS with vertex balancing and minimised edge cuts.  METIS
 is not installable offline, so we provide a multilevel-lite equivalent:
@@ -228,6 +229,7 @@ def assemble_shard(
     push: np.ndarray,
     *,
     retention_limit: Optional[int] = None,
+    retained_remote: Optional[dict[int, np.ndarray]] = None,
     seed: int = 0,
 ) -> ClientShard:
     """Assemble one :class:`ClientShard` from the client's in-edge list.
@@ -244,6 +246,12 @@ def assemble_shard(
     if retention_limit is not None:
         keep = _retention_edge_mask(e_dst, remote_mask,
                                     retention_limit, rng)
+        e_src, e_dst = e_src[keep], e_dst[keep]
+        remote_mask = remote_mask[keep]
+    if retained_remote is not None:
+        keep_set = np.asarray(retained_remote.get(c, all_pull),
+                              dtype=np.int64)
+        keep = np.isin(e_src, keep_set) | ~remote_mask
         e_src, e_dst = e_src[keep], e_dst[keep]
         remote_mask = remote_mask[keep]
     pull = np.unique(e_src[remote_mask])
@@ -276,6 +284,7 @@ def make_client_shards(
     g: Graph,
     part: np.ndarray,
     *,
+    retained_remote: Optional[dict[int, np.ndarray]] = None,
     retention_limit: Optional[int] = None,
     seed: int = 0,
 ) -> list[ClientShard]:
@@ -283,7 +292,10 @@ def make_client_shards(
 
     ``retention_limit`` applies §4.1.1 uniform random pruning (each local
     boundary vertex keeps ≤ limit remote in-edges; 0 ⇒ default federated
-    GNN, None ⇒ P_inf / EmbC).  Materializes the full O(E) edge array.
+    GNN, None ⇒ P_inf / EmbC).  ``retained_remote`` optionally maps
+    client → global ids of remote vertices to retain (score-based pruning,
+    §4.1.2); both compose (limit first, then the vertex set filter).
+    Materializes the full O(E) edge array.
     """
     k = int(part.max()) + 1
     deg = np.diff(g.indptr)
@@ -299,5 +311,6 @@ def make_client_shards(
         push = np.unique(src_of_edge[other_dst & (part[src_of_edge] == c)])
         shards.append(assemble_shard(
             g, part, c, e_src, e_dst, push,
-            retention_limit=retention_limit, seed=seed))
+            retention_limit=retention_limit,
+            retained_remote=retained_remote, seed=seed))
     return shards

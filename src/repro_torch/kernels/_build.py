@@ -39,6 +39,8 @@ SIGNATURES: dict[str, list] = {
     "quantize_rows": [_P, _P, _I64, _I32, _I64, _P, _P, _P],
     "dequantize_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I32, _P],
     "segment_mean_csr": [_P, _P, _P, _I64, _I32, _P, _P, _P],
+    "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "count_ge": [_P, _I64, _P, _P, _P],
 }
 
 #: Launches per wrapper entry point, counted where the kernel is launched.
@@ -48,6 +50,8 @@ LAUNCHES: dict[str, int] = {
     "gather_quantize": 0,
     "dequant_scatter": 0,
     "gnn_aggregate": 0,
+    "segment_mean_bwd": 0,
+    "count_ge": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,7 @@ from . import _build, ref
 from . import exchange_fused as _fused
 from . import gnn_aggregate as _agg
 from . import quantize as _quant
+from . import topk_mask as _topk
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -91,7 +92,24 @@ def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
                   edge_dst: torch.Tensor, edge_mask: torch.Tensor,
                   n_dst: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked neighbour mean over a destination-grouped edge list →
-    (mean (n_dst, F), cnt (n_dst,) fp32)."""
+    (mean (n_dst, F), cnt (n_dst,) fp32), differentiable in ``src``
+    through :class:`GnnAggregate` (the kernels on the card, the plain
+    versions on the CPU)."""
     if _on_cuda(src):
         return _agg.gnn_aggregate(src, edge_src, edge_dst, edge_mask, n_dst)
-    return ref.segment_mean(src, edge_src, edge_dst, edge_mask, n_dst)
+    return _agg.GnnAggregate.apply(src, edge_src, edge_dst, edge_mask, n_dst)
+
+
+def count_ge(scores: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """#(scores ≥ thr) as an int32 0-dim tensor."""
+    if _on_cuda(scores):
+        return _topk.count_ge(scores, thr)
+    return ref.count_ge(scores, thr)
+
+
+def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of at least the ``k`` largest fp32 ``scores`` (ties
+    at the threshold kept), bit-equal to the JAX ``topk_mask``."""
+    if _on_cuda(scores):
+        return _topk.topk_mask(scores, k)
+    return ref.topk_mask(scores, k)

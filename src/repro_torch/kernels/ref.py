@@ -79,3 +79,61 @@ def segment_mean(src: torch.Tensor, edge_src: torch.Tensor,
     cnt = torch.zeros(n_dst, dtype=vals.dtype, device=src.device)
     cnt.index_add_(0, dst, w)
     return summed / torch.clamp_min(cnt, 1.0)[:, None], cnt
+
+
+def segment_mean_backward(grad_mean: torch.Tensor, edge_src: torch.Tensor,
+                          edge_dst: torch.Tensor, edge_mask: torch.Tensor,
+                          cnt: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Gradient of :func:`segment_mean`'s mean with respect to ``src``,
+    op for op JAX's transpose of ``_segment_mean``: each kept edge adds
+    ``grad_mean[dst] / max(cnt[dst], 1)`` (times its mask weight) into
+    row ``src`` of a zeroed (n_src, F) table."""
+    w = edge_mask.to(grad_mean.dtype)
+    per_dst = grad_mean / torch.clamp_min(cnt, 1.0)[:, None]
+    terms = per_dst[edge_dst.to(torch.int64)] * w[:, None]
+    grad_src = torch.zeros((n_src, grad_mean.shape[1]),
+                           dtype=grad_mean.dtype, device=grad_mean.device)
+    grad_src.index_add_(0, edge_src.to(torch.int64), terms)
+    return grad_src
+
+
+#: Bisection steps of the top-k threshold search (``topk_mask.py:ITERS``).
+TOPK_ITERS = 24
+
+
+def count_ge(scores: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Number of ``scores >= thr`` as an int32 0-dim tensor on the
+    scores' device; ``thr`` is a 0-dim fp32 tensor."""
+    return (scores >= thr).sum().to(torch.int32)
+
+
+def topk_mask(scores: torch.Tensor, k: int, *, count=count_ge
+              ) -> torch.Tensor:
+    """Boolean mask holding at least the ``k`` largest scores: the JAX
+    kernel's threshold bisection (``repro/kernels/topk_mask.py``) replayed
+    in fp32 step for step, so the mask is bit-equal to it.  Ties at the
+    threshold are all kept.
+
+    ``count(scores, thr)`` counts ``scores >= thr``; the CUDA wrapper
+    passes its kernel.  Every scalar stays a fp32 tensor on the scores'
+    device (Python floats are float64), and the 24 decisions are taken
+    with ``torch.where``, so the loop never waits on the host."""
+    n = scores.shape[0]
+    if k <= 0:
+        return torch.zeros(n, dtype=torch.bool, device=scores.device)
+    if k >= n:
+        return torch.ones(n, dtype=torch.bool, device=scores.device)
+    s = scores.to(torch.float32).contiguous()
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=s.device)
+
+    lo = s.min()
+    hi = s.max() + f32(1e-6)
+    half = f32(0.5)
+    for _ in range(TOPK_ITERS):
+        mid = half * (lo + hi)
+        above = count(s, mid) > k
+        lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
+    thr = torch.where(count(s, hi) >= k, hi, lo)
+    return s >= thr

@@ -7,9 +7,9 @@ client's pulled embedding cache instead of being computed.
 
 Neighbour aggregation goes through :func:`repro_torch.kernels.ops.gnn_aggregate`
 — the hand-written CUDA kernel on the card, the plain segment mean on the
-CPU.  The GraphConv mix and the matrix products stay PyTorch code, as
-they stay XLA code in the JAX package.  The aggregation kernel has no
-backward yet, so on the card the model runs under ``torch.no_grad()``.
+CPU — differentiable through its backward kernel (or the plain
+backward).  The GraphConv mix and the matrix products stay PyTorch code,
+as they stay XLA code in the JAX package.
 
 Blocks are dicts of tensors (:func:`blocks_to_arrays`,
 :func:`shard_to_arrays`) with the JAX package's keys and layouts, so the
@@ -83,6 +83,28 @@ class GNN(nn.Module):
     @property
     def hidden(self) -> int:
         return int(self.layers[0].b.shape[0])
+
+    def leaves(self) -> list[nn.Parameter]:
+        """The parameters in the JAX package's ``tree_flatten`` order:
+        per layer ``b``, ``w_neigh`` and, for SAGEConv, ``w_self``."""
+        out = []
+        for layer in self.layers:
+            out += [layer.b, layer.w_neigh]
+            if layer.w_self is not None:
+                out.append(layer.w_self)
+        return out
+
+    @torch.no_grad()
+    def load_leaves(self, leaves: Sequence) -> None:
+        """Overwrite the parameters in place from arrays or tensors in
+        :meth:`leaves` order."""
+        mine = self.leaves()
+        if len(leaves) != len(mine):
+            raise ValueError(f"{len(leaves)} leaves for a model of "
+                             f"{len(mine)}")
+        for p, v in zip(mine, leaves):
+            p.copy_(torch.as_tensor(np.asarray(v, np.float32))
+                    if not isinstance(v, torch.Tensor) else v)
 
     def layer_forward(self, l: int, h_src: torch.Tensor, blk: dict, *,
                       last: bool) -> torch.Tensor:
@@ -158,6 +180,19 @@ class GNN(nn.Module):
         return outs
 
 
+def loss_fn(model: GNN, batch: dict, features: torch.Tensor,
+            caches: Sequence[torch.Tensor],
+            labels: torch.Tensor) -> torch.Tensor:
+    """Masked mean negative log-likelihood of the seeds' labels, op for
+    op the JAX ``loss_fn``."""
+    logits = model(batch, features, caches)
+    seed_labels = labels[batch["seeds"]]
+    mask = batch["seed_mask"].to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 1, seed_labels[:, None])[:, 0]
+    return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
 def init_gnn(conv: str, in_dim: int, hidden: int, out_dim: int,
              num_layers: int, *, generator: torch.Generator,
              device: str = "cuda") -> GNN:
@@ -222,8 +257,12 @@ def block_arrays(blocks, input_ids, device) -> dict:
 
 
 def blocks_to_arrays(mb, device) -> dict:
-    """A sampled mini-batch (``blocks``, ``input_ids``) as tensors."""
-    return block_arrays(mb.blocks, mb.input_ids, device)
+    """A sampled :class:`MiniBatch` (blocks, input ids, seeds and their
+    mask) as tensors on ``device``."""
+    out = block_arrays(mb.blocks, mb.input_ids, device)
+    out["seeds"] = torch.from_numpy(mb.seeds.astype(np.int64)).to(device)
+    out["seed_mask"] = torch.from_numpy(mb.seed_mask).to(device)
+    return out
 
 
 def shard_to_arrays(shard, device) -> dict:

@@ -7,16 +7,24 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
 The codec, the fused gather and the scatter-set are held bit-exact; the
 segment mean within rtol = atol = 1e-6 of its plain version run on the
-CPU, which adds in the kernel's order; the scatter-add with duplicate rows, whose atomics
-add in no fixed order, within 1e-6 of each row's summed magnitudes.
+CPU, which adds in the kernel's order; the scatter-add with duplicate
+rows and the aggregation's backward, whose atomics add in no fixed
+order, within 1e-6 of each row's summed magnitudes; the top-k masks bit
+for bit.  A short training round on the card is held to the same round
+on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.federated import (export_for_serving, pretrain_push,
+from repro_torch.core.federated import (FederatedGNNTrainer,
+                                        export_for_serving, pretrain_push,
                                         setup_exchange)
+from repro_torch.core.pruning import top_fraction
+from repro_torch.core.strategies import default_strategies
 from repro_torch.exchange import make_transport
 from repro_torch.gnnserve import build_serving
 from repro_torch.graphs import bfs_partition, make_client_shards, make_graph
@@ -124,7 +132,9 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     ops.reset_launch_counts()
     res_g, tab_g = _publish_and_serve("cuda")
     counts = ops.launch_counts()
-    assert all(c > 0 for c in counts.values()), counts
+    serving = ("quantize_int8", "dequantize_int8", "gather_quantize",
+               "dequant_scatter", "gnn_aggregate")
+    assert all(counts[k] > 0 for k in serving), counts
     res_c, tab_c = _publish_and_serve("cpu")
     for a, b in zip(tab_g, tab_c):
         step = b.abs().amax(dim=1, keepdim=True) / 127.0
@@ -132,4 +142,82 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     assert sorted(res_g) == sorted(res_c)
     agree = np.mean([res_g[r].pred == res_c[r].pred for r in res_c])
     assert agree >= 0.95
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
+    (257, 100, 1000, 32, 56), (1024, 300, 20000, 96, 0), (40, 500, 300, 8, 0),
+    (10, 10, 0, 8, 0)])
+def test_segment_mean_backward_matches_plain(cuda, n_src, n_dst, e, f, pad):
+    """Masked edges, isolated rows and repeated sources; the backward
+    launches only where the source needs a gradient."""
+    rng = np.random.default_rng(e + 1)
+    src = np.r_[rng.integers(0, n_src // 4 + 1, e), np.zeros(pad)] \
+        .astype(np.int32)
+    dst = np.r_[np.sort(rng.integers(0, n_dst, e)),
+                np.zeros(pad)].astype(np.int32)
+    mask = np.r_[rng.random(e) < 0.7, np.zeros(pad, bool)]
+    es, ed, em = (torch.from_numpy(a).to(cuda) for a in (src, dst, mask))
+    x = torch.from_numpy(_rows(n_src, f, 2)).to(cuda).requires_grad_()
+    g = torch.from_numpy(_rows(n_dst, f, 3)).to(cuda)
+    ops.reset_launch_counts()
+    mean, cnt = ops.gnn_aggregate(x, es, ed, em, n_dst)
+    (mean * g).sum().backward()
+    assert ops.launch_counts()["segment_mean_bwd"] == (1 if e else 0)
+    want = ref.segment_mean_backward(g, es, ed, em, cnt, n_src)
+    mag = ref.segment_mean_backward(g.abs(), es, ed, em, cnt, n_src)
+    assert bool(((x.grad - want).abs() <= TOL * mag + TOL).all())
+    ops.gnn_aggregate(x.detach(), es, ed, em, n_dst)
+    assert ops.launch_counts()["segment_mean_bwd"] == (1 if e else 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,k,ties", [(1, 1, False), (1000, 10, False),
+                                      (4096, 100, False), (5000, 1250, True),
+                                      (100_000, 25_000, True)])
+def test_topk_mask_matches_plain(cuda, n, k, ties):
+    rng = np.random.default_rng(n + k)
+    s = rng.integers(0, 30, n) if ties else rng.standard_normal(n)
+    s = torch.from_numpy(s.astype(np.float32))
+    ops.reset_launch_counts()
+    got = ops.topk_mask(s.to(cuda), k)
+    assert ops.launch_counts()["count_ge"] == (25 if 0 < k < n else 0)
+    assert torch.equal(got.cpu(), ref.topk_mask(s, k))
+    assert torch.equal(got, ref.topk_mask(s.to(cuda), k))
+    thr = s[n // 2].reshape(()).to(cuda)
+    assert int(ops.count_ge(s.to(cuda), thr)) == int((s >= s[n // 2]).sum())
+    scores = s.double().numpy()
+    order = np.lexsort((np.arange(n), -scores))
+    assert np.array_equal(top_fraction(scores, k / n, device="cuda"),
+                          np.sort(order[: int(np.ceil(k / n * n))]))
+    torch.cuda.synchronize()
+
+
+def _train_one_round(device):
+    g = make_graph("reddit", scale=0.3, seed=2)
+    st = dataclasses.replace(default_strategies()["OPG"], codec="int8",
+                             score_kind="degree")
+    model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                     generator=torch.Generator().manual_seed(0),
+                     device=device)
+    tr = FederatedGNNTrainer(g, 2, st, model=model, epochs_per_round=2,
+                             device=device)
+    stats = tr.train(1)
+    return tr, stats[0]
+
+
+def test_training_on_the_card_matches_the_cpu(cuda):
+    ops.reset_launch_counts()
+    tr_g, s_g = _train_one_round("cuda")
+    counts = ops.launch_counts()
+    for name in ("gnn_aggregate", "segment_mean_bwd", "count_ge",
+                 "gather_quantize", "dequant_scatter"):
+        assert counts[name] > 0, counts
+    tr_c, s_c = _train_one_round("cpu")
+    assert s_g.pull_rpc_sizes == s_c.pull_rpc_sizes
+    assert s_g.embeddings_stored == s_c.embeddings_stored
+    assert (tr_g.exchange.log.bytes, tr_g.exchange.log.rpcs) == \
+        (tr_c.exchange.log.bytes, tr_c.exchange.log.rpcs)
+    assert abs(s_g.train_loss - s_c.train_loss) <= 1e-2 * s_c.train_loss
+    assert abs(s_g.accuracy - s_c.accuracy) <= 0.02
     torch.cuda.synchronize()

@@ -1,7 +1,9 @@
 """The port's exchange plane against the JAX package's: codecs bit-exact,
 the embedding server's register / write / fused int8 surface /
 versioned-gather stream giving identical payloads, tables and versions,
-and the exchange client's peek, push and versioned pull matching."""
+the exchange client's peek, push and versioned pull matching, and a
+stream of delta / error-feedback pushes giving identical selections,
+payloads, shadows, residuals and charges."""
 
 import numpy as np
 import pytest
@@ -155,10 +157,72 @@ def test_client_matches(codec, device_tables):
 
 
 def test_training_knobs_wait_for_the_training_slice():
+    """The training knobs are ported: τ and EF build their host-side
+    trackers.  Transports other than in-process still wait."""
     tt = tmake_transport(3, H, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TClient(tt, "int8", delta_threshold=0.1)
-    with pytest.raises(NotImplementedError):
-        TClient(tt, "int8", error_feedback=True)
+    c = TClient(tt, "int8", delta_threshold=0.1, error_feedback=True)
+    assert c.delta.tau == 0.1 and c.delta.layers == 2
+    assert c.ef.max_abs_residual == 0.0
+    with pytest.raises(ValueError):
+        TClient(tt, "int8", delta_threshold=-1.0)
     with pytest.raises(ValueError):
         tmake_transport(3, H, kind="tcp", device="cpu")
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+@pytest.mark.parametrize("tau,ef", [(0.05, False), (0.05, True),
+                                    (None, True), (0.0, False)])
+def test_delta_and_error_feedback_stream(codec, tau, ef):
+    """A bootstrap push then three plan/apply pushes in which some rows
+    drift a little and some a lot; a plan abandoned in the middle leaves
+    no trace; dynamic pulls charge alike."""
+    jt = jmake_transport(3, H, kind="inprocess")
+    tt = tmake_transport(3, H, device="cpu")
+    kw = dict(delta_threshold=tau, error_feedback=ef)
+    jc, tc = JClient(jt, codec, **kw), TClient(tt, codec, **kw)
+    gids = np.arange(0, 600, 5)
+    n = len(gids)
+    jc.register(gids)
+    tc.register(gids)
+    rng = np.random.default_rng(4)
+    vals = [_rows(n, 30), _rows(n, 31)]
+    for step in range(4):
+        if step:
+            drift = np.where(rng.random(n) < 0.3, 0.5, 0.01)[:, None]
+            vals = [(v + drift * rng.standard_normal(v.shape))
+                    .astype(np.float32) for v in vals]
+        if step == 2:                       # abandoned plan: no side effect
+            tc.plan_push(gids, [torch.from_numpy(v) for v in vals])
+            jc.plan_push(gids, vals)
+        jplan = jc.plan_push(gids, vals)
+        tplan = tc.plan_push(gids, [torch.from_numpy(v) for v in vals])
+        np.testing.assert_array_equal(tplan.global_ids, jplan.global_ids)
+        assert (tplan.n_selected, tplan.n_total) == \
+            (jplan.n_selected, jplan.n_total)
+        assert tplan.transfer_time == jplan.transfer_time
+        for a, b in zip(jplan.layer_values, tplan.layer_values):
+            np.testing.assert_array_equal(_np(b), np.asarray(a))
+        for a, b in zip(jplan.raw_values, tplan.raw_values):
+            np.testing.assert_array_equal(_np(b), np.asarray(a))
+        if codec == "int8":
+            for v, (q, sc) in zip(jplan.raw_values, tplan.payloads):
+                wq, ws = jops._np_quantize_int8(np.asarray(v, np.float32))
+                np.testing.assert_array_equal(_np(q), wq)
+                np.testing.assert_array_equal(_np(sc), ws)
+        assert jc.apply_push(jplan) == tc.apply_push(tplan)
+        if tau is not None:
+            assert tc.delta.history == jc.delta.history
+            np.testing.assert_array_equal(tc.delta._shadow, jc.delta._shadow)
+        if ef:
+            np.testing.assert_array_equal(tc.ef._live, jc.ef._live)
+            assert tc.ef.max_abs_residual == jc.ef.max_abs_residual
+    if tau == 0.05:
+        assert 0 < tc.delta.history[-1][0] < n
+    for a, b in zip(jc.peek(gids), tc.peek(gids)):
+        np.testing.assert_array_equal(_np(b), np.asarray(a))
+    assert jc.dynamic_pull(gids[:7]) == tc.dynamic_pull(gids[:7])
+    jlog, tlog = jt.log, tt.log
+    assert (jlog.bytes, jlog.rpcs, jlog.embeddings) == \
+        (tlog.bytes, tlog.rpcs, tlog.embeddings)
+    assert tlog.seconds == pytest.approx(jlog.seconds, rel=1e-12)
+    assert tt.num_embeddings_stored == jt.num_embeddings_stored

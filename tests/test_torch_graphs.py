@@ -52,3 +52,68 @@ def test_from_edges_matches():
         b = tgraphs.from_edges(50, src, dst, symmetric=sym)
         _same(a.indptr, b.indptr, "indptr")
         _same(a.indices, b.indices, "indices")
+
+
+def _shards_equal(js, ts):
+    assert len(js) == len(ts)
+    for a, b in zip(js, ts):
+        for f in dataclasses.fields(a):
+            va, vb = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(va, np.ndarray):
+                _same(va, vb, f"shard {a.client_id} {f.name}")
+            else:
+                assert va == vb, f.name
+
+
+@pytest.mark.parametrize("name,scale", [("arxiv", 0.1), ("reddit", 0.2)])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_sampler_minibatches_byte_identical(name, scale, seed):
+    """Two epochs of every client's sampler: each Block array, the seeds,
+    input ids and remote slots used."""
+    from repro.graphs.sampler import NeighborSampler as JSampler
+
+    g = jgraphs.make_graph(name, scale=scale, seed=seed)
+    part = jgraphs.bfs_partition(g, 2, seed=seed)
+    for sh in jgraphs.make_client_shards(g, part, retention_limit=4,
+                                         seed=seed):
+        js = JSampler(sh, 5, 3, 32, seed=seed)
+        ts = tgraphs.NeighborSampler(sh, 5, 3, 32, seed=seed)
+        assert ts.num_batches() == js.num_batches()
+        for _ in range(2):
+            for a, b in zip(js.epoch(), ts.epoch(), strict=True):
+                for f in ("seeds", "seed_mask", "input_ids"):
+                    _same(getattr(a, f), getattr(b, f), f)
+                assert len(a.remote_slots_used) == len(b.remote_slots_used)
+                for ua, ub in zip(a.remote_slots_used, b.remote_slots_used):
+                    _same(ua, ub, "remote_slots_used")
+                for ba, bb in zip(a.blocks, b.blocks, strict=True):
+                    for f in dataclasses.fields(ba):
+                        va, vb = getattr(ba, f.name), getattr(bb, f.name)
+                        if isinstance(va, np.ndarray):
+                            _same(va, vb, f.name)
+                        else:
+                            assert va == vb, f.name
+
+
+def test_scored_shards_and_scores_identical():
+    """Retention P_4 then a retained-remote filter (as OPG builds its
+    shards), and the three remote-node scores on the result."""
+    from repro.core import pruning as jpruning
+    from repro_torch.core import pruning as tpruning
+
+    g = jgraphs.make_graph("reddit", scale=0.2, seed=3)
+    part = jgraphs.bfs_partition(g, 3, seed=3)
+    tg = tgraphs.make_graph("reddit", scale=0.2, seed=3)
+    base = jgraphs.make_client_shards(g, part, retention_limit=4, seed=3)
+    retained = {sh.client_id: sh.pull_nodes[::3] for sh in base}
+    js = jgraphs.make_client_shards(g, part, retention_limit=4,
+                                    retained_remote=retained, seed=3)
+    ts = tgraphs.make_client_shards(tg, part, retention_limit=4,
+                                    retained_remote=retained, seed=3)
+    _shards_equal(js, ts)
+    assert all(len(a.pull_nodes) < len(b.pull_nodes)
+               for a, b in zip(js, base))
+    for sh in js:
+        for kind in ("frequency", "degree", "bridge"):
+            _same(jpruning.score_remote_nodes(sh, kind, 3),
+                  tpruning.score_remote_nodes(sh, kind, 3), kind)

@@ -5,9 +5,14 @@ against its plain version on a GPU in ``tests/test_torch_cuda.py``.
 The int8 codec, the fused gather and the scatter-set are held bit-exact
 (``torch.equal`` after conversion); scatter-add is exact for unique rows;
 the segment mean is held to rtol = atol = 1e-6 against the JAX model's
-``_segment_mean``, whose sequential segment sum adds in the same order.
+``_segment_mean``, whose sequential segment sum adds in the same order,
+and its gradient to rtol = atol = 1e-6 against ``jax.vjp`` of it (the
+terms are bit-equal, the sums add in other orders).  The top-k masks are
+bit-equal to the Pallas ``topk_mask`` in interpret mode and the
+``top_fraction`` indices equal to the JAX package's.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,12 +20,18 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.core.pruning import degree_scores as jdegree_scores
+from repro.core.pruning import top_fraction as jtop_fraction
+from repro.graphs import bfs_partition, make_client_shards, make_graph
 from repro.kernels.quantize import quantize_int8 as pallas_quantize
+from repro.kernels.topk_mask import topk_mask as pallas_topk
 from repro.models.gnn import _segment_mean
-from repro_torch.kernels import _build, ops
+from repro_torch.core.pruning import top_fraction as ttop_fraction
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import exchange_fused as tfused
 from repro_torch.kernels import gnn_aggregate as tagg
 from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import topk_mask as ttopk
 
 torch.set_num_threads(1)
 
@@ -220,6 +231,97 @@ def test_csr_glue_builds_rows_and_rejects_ungrouped_edges():
                             torch.from_numpy(mask), 20)
 
 
+def _edges_with_repeats(n_src, n_dst, e, f, seed, pad=0):
+    """Grouped edges whose sources repeat (a quarter of the table) and
+    leave destination rows isolated."""
+    feats, src, dst, mask = _edges(n_src, n_dst, e, f, seed, pad=pad)
+    return feats, src % max(1, n_src // 4), dst, mask
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
+    (64, 32, 200, 16, 0), (257, 100, 1000, 32, 56), (40, 500, 300, 8, 0),
+    (10, 10, 0, 8, 0)])
+def test_gnn_aggregate_gradient_matches_jax_vjp(n_src, n_dst, e, f, pad):
+    feats, src, dst, mask = _edges_with_repeats(n_src, n_dst, e, f,
+                                                n_src + e, pad)
+    g = np.random.default_rng(e).standard_normal((n_dst, f)) \
+        .astype(np.float32)
+    x = torch.from_numpy(feats).requires_grad_()
+    mean, cnt = ops.gnn_aggregate(x, torch.from_numpy(src),
+                                  torch.from_numpy(dst),
+                                  torch.from_numpy(mask), n_dst)
+    assert not cnt.requires_grad
+    (mean * torch.from_numpy(g)).sum().backward()
+
+    def jmean(h):
+        return _segment_mean(h[jnp.asarray(src)], jnp.asarray(dst),
+                             jnp.asarray(mask), n_dst)[0]
+
+    _, vjp = jax.vjp(jmean, jnp.asarray(feats))
+    (want,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(_np(x.grad), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    assert np.all(_np(x.grad)[n_src // 4 + 1:] == 0)   # never a source
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
+    (64, 32, 200, 16, 0), (257, 100, 1000, 32, 56), (40, 500, 300, 8, 0)])
+def test_plain_backward_equals_autograd_through_plain_forward(n_src, n_dst,
+                                                             e, f, pad):
+    feats, src, dst, mask = _edges_with_repeats(n_src, n_dst, e, f, e, pad)
+    args = [torch.from_numpy(a) for a in (src, dst, mask)]
+    g = torch.from_numpy(_rows(n_dst, f, 4))
+    x = torch.from_numpy(feats).requires_grad_()
+    mean, cnt = ref.segment_mean(x, *args, n_dst)
+    (mean * g).sum().backward()
+    got = ref.segment_mean_backward(g, *args, cnt.detach(), n_src)
+    torch.testing.assert_close(got, x.grad, rtol=TOL, atol=TOL)
+
+
+# -- topk_mask / top_fraction --------------------------------------------------
+
+@pytest.mark.parametrize("n,k,ties", [(100, 10, False), (1024, 256, False),
+                                      (5000, 1250, False), (10, 10, False),
+                                      (64, 0, False), (3000, 700, True),
+                                      (2048, 1, True), (777, 776, True)])
+def test_topk_mask_bit_equal_to_pallas(n, k, ties):
+    rng = np.random.default_rng(n + k)
+    s = (rng.integers(0, 12, n) if ties else rng.standard_normal(n)) \
+        .astype(np.float32)
+    got = ops.topk_mask(torch.from_numpy(s), k)
+    want = pallas_topk(jnp.asarray(s), k, interpret=True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    assert int(got.sum()) >= min(k, n)
+    thr = torch.tensor(s[n // 2])
+    assert int(ops.count_ge(torch.from_numpy(s), thr)) == int((s >= s[n // 2])
+                                                              .sum())
+
+
+def _scores(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.random(n)
+    if kind == "tied":
+        return rng.integers(0, 5, n).astype(np.float64)
+    g = make_graph("reddit", scale=0.2, seed=seed)
+    sh = make_client_shards(g, bfs_partition(g, 3, seed=0))[seed % 3]
+    return jdegree_scores(sh)
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "degree"])
+@pytest.mark.parametrize("frac", [0.1, 0.25, 0.999, 1.0])
+def test_top_fraction_matches_jax(kind, frac):
+    scores = _scores(kind, 1500, 2)
+    want = jtop_fraction(scores, frac)
+    np.testing.assert_array_equal(
+        ttop_fraction(scores, frac, device="cpu"), want)
+    got = ttop_fraction(scores, frac, rng=np.random.default_rng(9),
+                        random_subset=True, device="cpu")
+    np.testing.assert_array_equal(
+        got, jtop_fraction(scores, frac, rng=np.random.default_rng(9),
+                           random_subset=True))
+
+
 # -- dispatch ------------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_versions_without_launching():
@@ -229,9 +331,12 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     ops.dequantize_int8(q, s)
     ops.gather_quantize(x, np.arange(5))
     ops.dequant_scatter_(x.clone(), np.arange(20), q, s)
-    ops.gnn_aggregate(x, torch.zeros(3, dtype=torch.int32),
-                      torch.zeros(3, dtype=torch.int32),
-                      torch.ones(3, dtype=torch.bool), 2)
+    xg = x.clone().requires_grad_()
+    mean, _ = ops.gnn_aggregate(xg, torch.zeros(3, dtype=torch.int32),
+                                torch.zeros(3, dtype=torch.int32),
+                                torch.ones(3, dtype=torch.bool), 2)
+    mean.sum().backward()
+    ops.topk_mask(x[:, 0].contiguous(), 5)
     assert set(ops.launch_counts()) == set(_build.LAUNCHES)
     assert all(c == 0 for c in ops.launch_counts().values())
     with pytest.raises(ValueError, match="no kernel"):
@@ -257,3 +362,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tagg.gnn_aggregate(x, torch.zeros(2, dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32),
                            torch.ones(2, dtype=torch.bool), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tagg.segment_mean_csr_bwd(x, torch.zeros(5, dtype=torch.int64),
+                                  torch.zeros(2, dtype=torch.int32),
+                                  torch.zeros(4), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttopk.topk_mask(x[:, 0].contiguous(), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttopk.count_ge(x[:, 0].contiguous(), torch.tensor(0.0))

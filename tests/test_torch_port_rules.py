@@ -8,7 +8,7 @@ import pathlib
 
 import pytest
 
-from repro_torch.core import embedding_server, federated
+from repro_torch.core import embedding_server, federated, pruning
 from repro_torch.exchange import transport
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
@@ -50,6 +50,7 @@ def test_scan_catches_a_jax_import(tmp_path):
 
 @pytest.mark.parametrize("fn", [
     federated.export_for_serving, federated.pretrain_push,
+    federated.FederatedGNNTrainer.__init__, pruning.top_fraction,
     engine.build_serving, engine.ShardServeEngine.__init__,
     transport.make_transport, transport.InProcessTransport.__init__,
     embedding_server.EmbeddingServer.__init__, gnn.init_gnn,
