@@ -43,11 +43,11 @@ Phases, each of which fails the run:
    minibatches of its sampler's epoch through ``train_minibatches`` and
    the push plan; then the pushes, FedAvg and evaluation.  Every loss
    must be finite, each client's last 8 losses must average below its
-   first 8, and all seven kernels must have launched.  Set-up seconds by
-   phase, per-step sampling / block copy / forward+backward+Adam times,
-   the device's busy share over 16 profiled steps and the peak memory
-   are printed; the trained model is then published and served once to
-   count early exits.
+   first 8, and the seven kernels of serving and training must have
+   launched.  Set-up seconds by phase, per-step sampling / block copy /
+   forward+backward+Adam times, the device's busy share over 16 profiled
+   steps and the peak memory are printed; the trained model is then
+   published and served once to count early exits.
 7. Training kernels: the aggregation's backward and the top-k count
    against their plain versions at the slice's shapes (a minibatch's
    layer-2 block, layer 2 of ``full_propagate`` on client 0, client 0's
@@ -59,6 +59,37 @@ Phases, each of which fails the run:
    on the card and on the CPU (plain versions) from the same seed; byte
    counts and RPC sizes equal, loss within 1 % and accuracy within 2
    points.
+9. Pull then aggregate (before step 8): client 0's layer-2
+   ``full_propagate`` source rows (85,185 × 32) written to an embedding
+   server on the card, pulled back in int8 with ``gather_quantized`` and
+   aggregated by ``dequant_aggregate`` (counters zeroed just before,
+   read just after); bit-equal to ``gnn_aggregate(dequantize_int8)``
+   and within 1e-6 of the plain version on a CPU copy, then timed.
+10. Decode attention kernel: ``swa_attention_decode`` against its plain
+   version, fp32 within 2e-5 at the JAX tests' shapes (wrapped rings
+   with part of each ring in the future) plus one with ``window=None``,
+   dh 128, G 12 and a fully masked row; bf16 at the serving path's shape
+   (8 lanes, 8192 slots, 5 kv heads, G 3, dh 64, window 8192, wrapped
+   rings with the query at the newest position, a tenth of the slots
+   invalid) within one bf16 rounding of its plain version (2^-7 of each
+   element plus 1e-5), timed there beside one
+   ``scaled_dot_product_attention`` call.
+11. LM decode: smollm-360m at full width in bf16 under long_500k
+   (sliding window 8192), seeded random weights on the card, 8 lanes, a
+   cache of 8192 slots that has seen 8128 tokens with seeded K/V, then
+   256 greedy steps read back as the serve launcher does (the ring wraps
+   at step 64; with 8192 slots for a window of 8192 the ring's overwrite,
+   not the window mask, then keeps the window); counters zeroed just before, and the decode attention
+   must have launched 256 × 32 times.  Tokens/s, step p50 / p99 (CUDA
+   events), the decode attention's device time per step, the device's
+   idle share over 8 profiled steps and the peak memory are printed.
+   Then ``ContinuousBatcher`` with 8 lanes serves 32 requests of 64-token
+   prompts and 64 new tokens each: every request completes once with all
+   its tokens.
+12. LM reference: the same model in fp32 on the card and on the CPU
+   (plain versions) from one set of parameters and one cache (8188 of
+   8192 slots seen), 8 teacher-forced steps; logits within 1e-3 of the
+   largest logit at every step, TF32 off.
 
 The line before the last is the card's name and power limit; the one
 before it is the kernels' JSON report; the last line is
@@ -87,7 +118,16 @@ PROFILED_STEPS = 16
 #: backward and the top-k count
 SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "gather_quantize",
                  "dequant_scatter", "gnn_aggregate")
+TRAIN_KERNELS = SERVE_KERNELS + ("segment_mean_bwd", "count_ge")
 PAPERS_SCORES = 40_000_000    # remote-vertex scores at Papers scale
+LM_ARCH = "smollm-360m"       # the serve launcher's default, full width
+LM_LANES = 8
+LM_DECODE_STEPS = 256         # the ring wraps after the first 64
+LM_PROFILED_STEPS = 8
+LM_REQUESTS = 32              # batcher: 64-token prompts, 64 new tokens
+LM_PROMPT = 64
+LM_NEW = 64
+LM_REF_STEPS = 8              # card vs CPU, fp32, teacher-forced
 
 
 class SmokeFailure(Exception):
@@ -184,6 +224,7 @@ def busy_share(evs: list, wall: float) -> dict:
 
 
 def bound_ms(nbytes: int) -> float:
+    """The least time to move ``nbytes`` at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -198,8 +239,9 @@ def add_entry(report: list, name, source, replaces, err, shape, ms,
     """One kernel's row of the JSON report (launches filled in later)."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
-           "bound_by": "bytes", "library_ms": library_ms, **extra}
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+           "library_ms": library_ms, **extra}
     print(f"kernel {name}: shape {shape} max|d| {err:.3g} "
           f"ms {ms:.4f} device_ms {extra['device_ms']} plain_ms "
           f"{plain_ms:.4f} bound_ms {row['bound_ms']:.4f} library_ms "
@@ -749,8 +791,9 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
         first, last = np.mean(ls[:8]), np.mean(ls[-8:])
         check(last < first, f"client {ci}: loss did not fall "
                             f"({first:.4f} -> {last:.4f})")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the training slice")
+    for name in TRAIN_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} never launched on the training slice")
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
 
     # device busy share over PROFILED_STEPS steps of client 0, batches
@@ -968,6 +1011,371 @@ def train_reference_phase(torch, np) -> dict:
     return res
 
 
+# -- phase 9: the int8 pull fed straight into the aggregation ---------------
+
+def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
+    """The JAX package's consumer chain (``tests/test_exchange.py``'s
+    pull-then-aggregate test) at layer 2 of client 0's
+    ``full_propagate``: the source rows (local + cached remote) are
+    written to an embedding server on the card, pulled back in int8 wire
+    form with ``gather_quantized`` and aggregated by
+    ``ops.dequant_aggregate``.  The launch counters are zeroed just
+    before the pull and read just after the aggregation; then the kernel
+    is held bit-equal to the port's decode followed by its fp32
+    aggregation, and to the plain version on a CPU copy within TOL."""
+    from repro_torch.exchange import make_transport
+    from repro_torch.kernels import gnn_aggregate as agg_mod
+    from repro_torch.kernels import ops, ref
+
+    arr = trainer.shard_arrays[0]
+    n_dst = arr["num_local"]
+    n_src = n_dst + trainer._caches[0][0].shape[0]
+    hidden = trainer.hidden
+    e_src, e_dst = arr["edge_src"], arr["edge_dst"]
+    mask = torch.ones_like(arr["src_is_remote"])
+    gen = torch.Generator(device=DEV).manual_seed(99)
+    tr = make_transport(3, hidden, device=DEV)
+    gids = np.arange(n_src)
+    tr.register(gids)
+    tr.write(gids, [torch.randn((n_src, hidden), generator=gen, device=DEV)
+                    for _ in range(2)])
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    values, scales = tr.gather_quantized(gids, [1])[0]
+    mean = ops.dequant_aggregate(values, scales, e_src, e_dst, mask, n_dst)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["dequant_aggregate"] == 1 and counts["gather_quantize"] == 1,
+          f"pull-then-aggregate launches {counts}")
+
+    two_step, _ = ops.gnn_aggregate(ops.dequantize_int8(values, scales),
+                                    e_src, e_dst, mask, n_dst)
+    check(torch.equal(mean, two_step), "dequant_aggregate is not bit-equal "
+          "to gnn_aggregate(dequantize_int8) at row 5b' shape")
+    args = (values, scales, e_src, e_dst, mask)
+    want = ref.dequant_aggregate(*[a.cpu() for a in args], n_dst)
+    err = max_err(mean.cpu(), want)
+    check(torch.allclose(mean.cpu(), want, rtol=TOL, atol=TOL),
+          f"dequant_aggregate off its plain version by {err}")
+    check(bool(torch.isfinite(mean).all()), "dequant_aggregate: not finite")
+    print(f"pull-then-aggregate: {n_src}x{hidden} int8 -> {n_dst} rows, "
+          f"bit-equal to gnn_aggregate(dequantize_int8), plain max|d| "
+          f"{err:.3g}", flush=True)
+
+    indptr, indices = agg_mod.csr_from_edges(n_src, e_src, e_dst, mask,
+                                             n_dst)
+    kept = int(indices.shape[0])
+    gathered = ref.dequantize_int8(values, scales)[indices.long()]
+    dst_kept = e_dst[mask].long()
+    lib_out = torch.zeros((n_dst, hidden), device=DEV)
+    report: list = []
+    add_entry(report, "dequant_aggregate",
+              "src/repro_torch/csrc/segment_mean_csr_int8.cu",
+              "src/repro/kernels/gnn_aggregate.py:134", err,
+              (n_src, hidden, n_dst, int(e_src.shape[0])),
+              time_ms(torch, lambda: ops.dequant_aggregate(*args, n_dst)),
+              time_ms(torch, lambda: ref.dequant_aggregate(*args, n_dst)),
+              # int8 table and scales, every edge's mask byte, the int32
+              # ids of the kept edges, the mean out
+              values.numel() + n_src * 4 + int(e_src.shape[0])
+              + kept * (4 + 4) + n_dst * hidden * 4,
+              library_ms=time_ms(torch, lambda: lib_out.index_reduce_(
+                  0, dst_kept, gathered, "mean", include_self=False)),
+              kept_edges=kept, bit_equal_to_two_step=True,
+              device_ms=device_ms(torch, lambda: ops.dequant_aggregate(
+                  *args, n_dst), "segment_mean_csr_int8_kernel"))
+    return counts, report
+
+
+# -- phases 10-13: LM decode serving ------------------------------------------
+
+def swa_inputs(torch, np, B, T, Hkv, G, dh, seed, dtype, *,
+               at_head: bool = False):
+    """q/K/V from a seeded numpy stream; every sequence's ring has
+    wrapped (positions rotated past the capacity) and a tenth of its
+    slots are invalid.  The query sits at a random point of the ring, so
+    the slots after it are in the future, or with ``at_head`` at the
+    newest position, as on the serving path."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    q = t(rng.standard_normal((B, Hkv * G, dh), np.float32)).to(dtype)
+    k = t(rng.standard_normal((B, T, Hkv, dh), np.float32)).to(dtype)
+    v = t(rng.standard_normal((B, T, Hkv, dh), np.float32)).to(dtype)
+    shift = rng.integers(0, T, B)
+    pos = np.stack([np.roll(np.arange(T), s) + T for s in shift])
+    valid = rng.random((B, T)) < 0.9
+    qpos = pos.max(axis=1) if at_head else 2 * T - 1 - shift
+    return (q, k, v, t(pos.astype(np.int32)), t(valid),
+            t(qpos.astype(np.int32)))
+
+
+def swa_kernel_phase(torch, np) -> list[dict]:
+    """The decode attention kernel against its plain version: fp32 at the
+    JAX tests' shapes, one with ``window=None``, dh 128, G 12 and a fully
+    masked row (within 2e-5); bf16 at the serving path's shape, where the
+    two differ only in rounding the fp32 result to bf16, so each element
+    is held to one bf16 step of its value (2^-7 of it, plus 1e-5 near
+    zero); timed there beside the plain version and one
+    ``scaled_dot_product_attention`` call.  The bound counts K and V of
+    the kept slots only: the kernel reads no K row of a masked slot, and
+    a masked slot's V row has weight 0."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    worst = 0.0
+    for B, T, Hkv, G, dh, window in ((2, 64, 2, 3, 16, 32),
+                                     (1, 128, 1, 1, 64, 128),
+                                     (3, 256, 4, 2, 32, 100),
+                                     (2, 48, 1, 12, 128, None)):
+        q, k, v, pos, valid, qpos = swa_inputs(torch, np, B, T, Hkv, G, dh,
+                                               B * T, torch.float32)
+        if window is None:
+            valid[0] = False
+        err = max_err(ops.swa_attention_decode(q, k, v, pos, valid, qpos,
+                                               window=window),
+                      ref.swa_attention_decode(q, k, v, pos, valid, qpos,
+                                               window))
+        check(err <= 2e-5, f"swa fp32 off by {err} at {(B, T, Hkv, G, dh)}")
+        worst = max(worst, err)
+    B, T, Hkv, G, dh, window = LM_LANES, 8192, 5, 3, 64, 8192
+    args = swa_inputs(torch, np, B, T, Hkv, G, dh, 8, torch.bfloat16,
+                      at_head=True)
+    q, k, v, pos, valid, qpos = args
+    got = ops.swa_attention_decode(*args, window=window).float()
+    want = ref.swa_attention_decode(*args, window).float()
+    err = max_err(got, want)
+    over = float(((got - want).abs()
+                  / (2.0 ** -7 * want.abs() + 1e-5)).max())
+    check(over <= 1.0, f"swa bf16 off by {err} at the path's shape, "
+                       f"{over:.3g} of one bf16 step")
+    print(f"swa_attention_decode: fp32 max|d| {worst:.3g} (<= 2e-5), "
+          f"bf16 max|d| {err:.3g} with max|want| "
+          f"{float(want.abs().max()):.3g}, {over:.3g} of one bf16 step "
+          "(<= 1)", flush=True)
+
+    keep = valid & (pos <= qpos[:, None]) & (pos > qpos[:, None] - window)
+    mask = keep[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         enable_gqa=True)[:, :, 0]
+    lib_err = max_err(lib, got)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    kept = int(keep.sum())
+    report: list = []
+    add_entry(report, "swa_attention_decode",
+              "src/repro_torch/csrc/swa_decode.cu",
+              "src/repro/kernels/swa_attention.py:55", max(worst, err),
+              (B, T, Hkv, G, dh),
+              time_ms(torch, lambda: ops.swa_attention_decode(
+                  *args, window=window)),
+              time_ms(torch, lambda: ref.swa_attention_decode(*args, window)),
+              # q, the kept slots' K and V rows, positions and validity,
+              # q_pos in; out
+              q.numel() * 2 + kept * Hkv * dh * 2 * 2 + pos.numel() * 4
+              + valid.numel() + B * 4 + q.numel() * 2,
+              library_ms=lib_ms, library_max_abs_err=lib_err,
+              fp32_max_abs_err=worst, kept_slots=kept,
+              bf16_steps_off=over,
+              device_ms=device_ms(torch, lambda: ops.swa_attention_decode(
+                  *args, window=window), "swa_decode_kernel"))
+    return report
+
+
+def lm_config(dtype: str = "bfloat16"):
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.steps import cache_capacity, shape_variant
+
+    cfg = dataclasses.replace(
+        shape_variant(get_config(LM_ARCH), SHAPES["long_500k"]),
+        param_dtype=dtype)
+    return cfg, cache_capacity(cfg, SHAPES["long_500k"])
+
+
+def fill_kv(torch, cache: dict, seed: int) -> None:
+    """Seeded normal K/V in every slot of every layer, drawn on the card,
+    so the kernel reads real data rather than zeros."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for name in ("k", "v"):
+        cache["blocks"][name].normal_(generator=gen)
+
+
+def tree_to(tree, device):
+    """A copy of a nested dict of tensors (None leaves kept) on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device, copy=True)
+
+
+def lm_decode_phase(torch, np) -> tuple[dict, dict, object, object]:
+    """The launch/serve path at full width under long_500k: seeded random
+    bf16 parameters on the card, LM_LANES lanes, a cache of 8192 slots
+    that has seen 8192 - 64 tokens (K/V filled from a seeded generator),
+    then LM_DECODE_STEPS greedy steps, each read back to the host as the
+    launcher does.  The launch counters are zeroed just before the steps
+    and read just after."""
+    from repro_torch.data import synthetic_request_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg, cap = lm_config()
+    prefill = cap - 64
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    cache = lm.init_cache(cfg, LM_LANES, cap, prefill_len=prefill,
+                          device=DEV)
+    fill_kv(torch, cache, 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    serve_step = lm.make_serve_step(cfg)
+    toks = torch.from_numpy(next(synthetic_request_stream(
+        cfg, batch=LM_LANES, prompt_len=1, seed=0))).to(DEV)
+
+    ops.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = serve_step(params, toks, cache)
+        toks = torch.argmax(logits, dim=-1)
+        end.record()
+        toks[:, 0].cpu()                    # the launcher reads each token
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = LM_DECODE_STEPS * cfg.num_layers
+    check(counts["swa_attention_decode"] == want,
+          f"swa_attention_decode launched {counts['swa_attention_decode']} "
+          f"times in {LM_DECODE_STEPS} steps, expected {want}")
+    check(bool(torch.isfinite(logits.float()).all()), "LM logits not finite")
+    length = cache["blocks"]["length"]
+    check(bool((length == prefill + LM_DECODE_STEPS).all())
+          and bool((cache["blocks"]["index"]
+                    == (prefill + LM_DECODE_STEPS) % cap).all()),
+          "the ring's bookkeeping did not advance one slot per step")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+
+    wall_w: list[float] = []
+
+    def run():
+        nonlocal toks, cache
+        t1 = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            logits, cache = serve_step(params, toks, cache)
+            toks = torch.argmax(logits, dim=-1)
+            toks[:, 0].cpu()
+        torch.cuda.synchronize()
+        wall_w.append(time.perf_counter() - t1)
+    evs = device_events(torch, run, sessions=2)
+    swa = [e for e in evs if "swa_decode_kernel" in e.name]
+    window = {"steps": LM_PROFILED_STEPS, "window_s": wall_w[-1],
+              **busy_share(evs, wall_w[-1]),
+              "device_events_per_step": len(evs) / LM_PROFILED_STEPS
+              if evs else None,
+              "swa_device_ms_per_step":
+              sum(e.time_range.elapsed_us() for e in swa) / 1e3
+              / LM_PROFILED_STEPS if evs else None}
+    out = {"arch": cfg.name, "dtype": cfg.param_dtype,
+           "sliding_window": cfg.sliding_window, "lanes": LM_LANES,
+           "capacity": cap, "prefill_len": prefill,
+           "params": lm.param_count(params), "setup_s": setup_s,
+           "steps": LM_DECODE_STEPS, "wall_s": wall,
+           "tokens_per_s": LM_DECODE_STEPS * LM_LANES / wall,
+           "step_ms": percentiles(np, step_ms),
+           "host_step_ms_mean": wall / LM_DECODE_STEPS * 1e3,
+           "swa_launches": counts["swa_attention_decode"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "profiled_steps": window}
+    print("LM long-window decode: " + json.dumps(out), flush=True)
+    return out, counts, cfg, params
+
+
+def lm_batcher_phase(torch, np, cfg, params) -> dict:
+    """ContinuousBatcher at full width: LM_LANES lanes, LM_REQUESTS
+    requests of LM_PROMPT-token prompts from the seeded request stream,
+    LM_NEW new tokens each; every request must complete once with all
+    its tokens."""
+    from repro_torch.core.serving import ContinuousBatcher
+    from repro_torch.data import synthetic_request_stream
+    from repro_torch.kernels import ops
+
+    cap = min(LM_PROMPT + LM_NEW, cfg.sliding_window)
+    bat = ContinuousBatcher(cfg, params, lanes=LM_LANES, capacity=cap,
+                            device=DEV)
+    prompts = next(synthetic_request_stream(cfg, batch=LM_REQUESTS,
+                                            prompt_len=LM_PROMPT, seed=0))
+    rids = [bat.submit(p, max_new=LM_NEW) for p in prompts]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = bat.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = [r.rid for r in done]
+    check(len(got) == len(set(got)) and sorted(got) == sorted(rids),
+          f"batcher: {len(got)} completions for {len(rids)} requests")
+    check(all(len(r.generated) == LM_NEW for r in done),
+          "batcher: a request did not get all its tokens")
+    check(counts["swa_attention_decode"] == bat.steps * cfg.num_layers,
+          f"batcher: {counts['swa_attention_decode']} swa launches in "
+          f"{bat.steps} steps")
+    out = {"lanes": LM_LANES, "capacity": cap, "requests": len(done),
+           "prompt": LM_PROMPT, "max_new": LM_NEW, "steps": bat.steps,
+           "wall_s": wall,
+           "generated_tokens_per_s": LM_REQUESTS * LM_NEW / wall,
+           "processed_tokens_per_s":
+           LM_REQUESTS * (LM_PROMPT + LM_NEW - 1) / wall,
+           "swa_launches": counts["swa_attention_decode"]}
+    print("LM batcher: " + json.dumps(out), flush=True)
+    return out
+
+
+def lm_reference_phase(torch, np) -> dict:
+    """The full-width model in fp32 on the card (kernels) and on the CPU
+    (plain versions), from one set of parameters and the same cache
+    contents (LM_REF_STEPS short of a full ring of 8192), teacher-forced
+    for LM_REF_STEPS steps so the ring wraps; TF32 is off.  No greedy
+    feedback: random weights leave near-ties over 49,152 tokens."""
+    from repro_torch.data import synthetic_request_stream
+    from repro_torch.models import lm
+
+    cfg, cap = lm_config("float32")
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
+    params_cpu = tree_to(params, "cpu")
+    cache = lm.init_cache(cfg, 2, cap, prefill_len=cap - 4, device=DEV)
+    fill_kv(torch, cache, 3)
+    cache_cpu = tree_to(cache, "cpu")
+    toks = next(synthetic_request_stream(cfg, batch=2,
+                                         prompt_len=LM_REF_STEPS, seed=2))
+    worst = 0.0
+    t0 = time.perf_counter()
+    for t in range(LM_REF_STEPS):
+        tk = torch.from_numpy(toks[:, t: t + 1])
+        lg, cache = lm.decode_step(params, cfg, tk.to(DEV), cache)
+        lc, cache_cpu = lm.decode_step(params_cpu, cfg, tk, cache_cpu)
+        rel = max_err(lg.cpu(), lc) / float(lc.abs().max())
+        check(rel <= 1e-3, f"LM card vs CPU: step {t} logits off by "
+                           f"{rel:.3g} of max|logit|")
+        worst = max(worst, rel)
+    out = {"dtype": "float32", "lanes": 2, "capacity": cap,
+           "prefill_len": cap - 4, "steps": LM_REF_STEPS,
+           "max_rel_err": worst, "seconds": time.perf_counter() - t0}
+    print("LM card vs CPU reference: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -1009,14 +1417,27 @@ def main() -> int:
         torch, np, g, part)
     print("training slice: " + json.dumps(train), flush=True)
     report += train_kernel_phase(torch, np, trainer, scores0)
+    pull_counts, rows = pull_aggregate_phase(torch, np, trainer)
+    report += rows
     del trainer
     train_reference_phase(torch, np)
+    report += swa_kernel_phase(torch, np)
+    lm_res, lm_counts, cfg, params = lm_decode_phase(torch, np)
+    lm_batcher_phase(torch, np, cfg, params)
+    del params
+    lm_reference_phase(torch, np)
     for row in report:
-        row["launches_serve"] = res["launches"].get(row["name"], 0)
-        row["launches_train"] = train_counts[row["name"]]
-        row["launches"] = row["launches_serve"] + row["launches_train"]
+        name = row["name"]
+        row["launches_serve"] = res["launches"].get(name, 0)
+        row["launches_train"] = train_counts.get(name, 0)
+        row["launches_pull"] = pull_counts.get(name, 0)
+        row["launches_lm"] = lm_counts.get(name, 0)
+        row["launches"] = (row["launches_serve"] + row["launches_train"]
+                           + row["launches_pull"] + row["launches_lm"])
+        check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print(f"launches: serve {json.dumps(res['launches'])} train "
-          f"{json.dumps(train_counts)}", flush=True)
+          f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
+          f"{json.dumps(lm_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

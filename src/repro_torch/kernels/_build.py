@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 
 #: C signature of each library's entry point (pointers and the stream as
 #: c_void_p, so ctypes never truncates them to 32 bits).
@@ -41,6 +42,9 @@ SIGNATURES: dict[str, list] = {
     "segment_mean_csr": [_P, _P, _P, _I64, _I32, _P, _P, _P],
     "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "count_ge": [_P, _I64, _P, _P, _P],
+    "segment_mean_csr_int8": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "swa_decode": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                   _I32, _I32, _F32, _P, _P],
 }
 
 #: Launches per wrapper entry point, counted where the kernel is launched.
@@ -52,6 +56,8 @@ LAUNCHES: dict[str, int] = {
     "gnn_aggregate": 0,
     "segment_mean_bwd": 0,
     "count_ge": 0,
+    "dequant_aggregate": 0,
+    "swa_attention_decode": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

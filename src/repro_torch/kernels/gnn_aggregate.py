@@ -20,6 +20,10 @@ on that CSR.  On the CPU both directions are the plain versions
 (``ref.segment_mean`` and ``ref.segment_mean_backward``).  The backward
 runs only where the source needs a gradient — not for layer 1, whose
 source is the feature table.
+
+:func:`dequant_aggregate` is the same mean over an int8 source table
+with per-row scales (the wire form of a pull), through
+``csrc/segment_mean_csr_int8.cu``; forward only, like the JAX kernel.
 """
 
 from __future__ import annotations
@@ -142,3 +146,26 @@ def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
     the function of ``ref.segment_mean``, differentiable in ``src``."""
     check_cuda(src, torch.float32, "src", 2)
     return GnnAggregate.apply(src, edge_src, edge_dst, edge_mask, n_dst)
+
+
+def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,
+                      edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                      edge_mask: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """Masked neighbour mean over an int8 table on the card: values
+    (N_src, F) int8, scales (N_src, 1) fp32 → mean (n_dst, F) fp32,
+    bit-equal to ``gnn_aggregate(dequantize_int8(values, scales), …)``
+    through the port's kernels."""
+    check_cuda(values, torch.int8, "values", 2)
+    check_cuda(scales, torch.float32, "scales", 2)
+    n_src, f = values.shape
+    if scales.shape != (n_src, 1):
+        raise ValueError(f"scales {tuple(scales.shape)} for values "
+                         f"{tuple(values.shape)}")
+    indptr, indices = csr_from_edges(n_src, edge_src, edge_dst, edge_mask,
+                                     n_dst)
+    mean = torch.empty((n_dst, f), dtype=torch.float32, device=values.device)
+    if n_dst == 0:
+        return mean
+    launch("dequant_aggregate", "segment_mean_csr_int8", values, scales,
+           indptr, indices, n_dst, f, mean)
+    return mean

@@ -17,6 +17,7 @@ from . import _build, ref
 from . import exchange_fused as _fused
 from . import gnn_aggregate as _agg
 from . import quantize as _quant
+from . import swa_attention as _swa
 from . import topk_mask as _topk
 
 
@@ -98,6 +99,34 @@ def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
     if _on_cuda(src):
         return _agg.gnn_aggregate(src, edge_src, edge_dst, edge_mask, n_dst)
     return _agg.GnnAggregate.apply(src, edge_src, edge_dst, edge_mask, n_dst)
+
+
+def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,
+                      edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                      edge_mask: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """Masked neighbour mean over an int8 source table (values (N_src, F)
+    int8, scales (N_src, 1) fp32) and a destination-grouped edge list →
+    mean (n_dst, F) fp32, equal to ``gnn_aggregate(dequantize_int8(values,
+    scales), …)[0]``.  Forward only, as in the JAX package."""
+    if _on_cuda(values):
+        return _agg.dequant_aggregate(values, scales, edge_src, edge_dst,
+                                      edge_mask, n_dst)
+    return ref.dequant_aggregate(values, scales, edge_src, edge_dst,
+                                 edge_mask, n_dst)
+
+
+def swa_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_pos: torch.Tensor, kv_valid: torch.Tensor,
+                         q_pos: torch.Tensor, *, window: int | None
+                         ) -> torch.Tensor:
+    """One-token GQA decode attention against a ring-buffer cache: q (B,
+    H, dh), k/v (B, T, Hkv, dh), kv_pos / kv_valid (B, T), q_pos (B,) →
+    (B, H, dh); ``window=None`` is plain causal decode."""
+    if _on_cuda(q):
+        return _swa.swa_attention_decode(q, k, v, kv_pos, kv_valid, q_pos,
+                                         window=window)
+    return ref.swa_attention_decode(q, k, v, kv_pos, kv_valid, q_pos,
+                                    window)
 
 
 def count_ge(scores: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:

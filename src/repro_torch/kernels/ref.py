@@ -81,6 +81,17 @@ def segment_mean(src: torch.Tensor, edge_src: torch.Tensor,
     return summed / torch.clamp_min(cnt, 1.0)[:, None], cnt
 
 
+def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,
+                      edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                      edge_mask: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """Masked neighbour mean straight off the wire form: decode the int8
+    source table, then :func:`segment_mean` — the two-step path the
+    fused kernel replaces (JAX's ``ref.dequant_aggregate``).  Returns the
+    mean (n_dst, F) fp32."""
+    return segment_mean(dequantize_int8(values, scales), edge_src,
+                        edge_dst, edge_mask, n_dst)[0]
+
+
 def segment_mean_backward(grad_mean: torch.Tensor, edge_src: torch.Tensor,
                           edge_dst: torch.Tensor, edge_mask: torch.Tensor,
                           cnt: torch.Tensor, n_src: int) -> torch.Tensor:
@@ -137,3 +148,35 @@ def topk_mask(scores: torch.Tensor, k: int, *, count=count_ge
         lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
     thr = torch.where(count(s, hi) >= k, hi, lo)
     return s >= thr
+
+
+#: The finite "minus infinity" of masked attention scores
+#: (``repro/models/layers.py:NEG_INF``): a fully masked row gives the
+#: uniform average of its values, never NaN.
+NEG_INF = -1e30
+
+
+def swa_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_pos: torch.Tensor, kv_valid: torch.Tensor,
+                         q_pos: torch.Tensor, window: int | None
+                         ) -> torch.Tensor:
+    """One-token GQA attention against a (ring-buffer) cache, op for op
+    the JAX model's ``layers.decode_attention``: ``q · 1/sqrt(dh)`` in
+    fp32, the fp32 dot with K, slots kept where ``kv_valid & pos ≤ q_pos
+    & (window is None or pos > q_pos − window)`` and the rest set to
+    :data:`NEG_INF`, an fp32 softmax, ``p · V`` in fp32, cast to q's dtype.
+
+    q (B, H, dh); k/v (B, T, Hkv, dh) with H = G·Hkv; kv_pos int32 and
+    kv_valid bool (B, T); q_pos int32 (B,).  Returns (B, H, dh)."""
+    B, H, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, dh).to(torch.float32) \
+        * float(1.0 / np.sqrt(dh))
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(torch.float32))
+    mask = kv_valid & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (kv_pos > q_pos[:, None] - window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
+    return out.reshape(B, H, dh).to(q.dtype)

@@ -10,8 +10,13 @@ segment mean within rtol = atol = 1e-6 of its plain version run on the
 CPU, which adds in the kernel's order; the scatter-add with duplicate
 rows and the aggregation's backward, whose atomics add in no fixed
 order, within 1e-6 of each row's summed magnitudes; the top-k masks bit
-for bit.  A short training round on the card is held to the same round
-on the CPU.
+for bit; the aggregation over an int8 table bit for bit to the codec's
+decode followed by the fp32 aggregation; the decode attention within
+2e-5 of its plain version in fp32, and in bf16, where the two differ
+only in rounding the fp32 result, within one bf16 step of each element
+(2^-7 of it, plus 1e-5 near zero).  A short training
+round on the card is held to the same round on the CPU, and a
+full-width smollm-360m batcher serves its requests through the kernel.
 """
 
 import dataclasses
@@ -20,15 +25,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.core.federated import (FederatedGNNTrainer,
                                         export_for_serving, pretrain_push,
                                         setup_exchange)
 from repro_torch.core.pruning import top_fraction
+from repro_torch.core.serving import ContinuousBatcher
 from repro_torch.core.strategies import default_strategies
+from repro_torch.data import synthetic_request_stream
 from repro_torch.exchange import make_transport
 from repro_torch.gnnserve import build_serving
 from repro_torch.graphs import bfs_partition, make_client_shards, make_graph
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.steps import shape_variant
+from repro_torch.models import lm
 from repro_torch.models.gnn import init_gnn
 
 pytestmark = pytest.mark.gpu
@@ -220,4 +230,92 @@ def test_training_on_the_card_matches_the_cpu(cuda):
         (tr_c.exchange.log.bytes, tr_c.exchange.log.rpcs)
     assert abs(s_g.train_loss - s_c.train_loss) <= 1e-2 * s_c.train_loss
     assert abs(s_g.accuracy - s_c.accuracy) <= 0.02
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
+    (300, 100, 600, 32, 0), (257, 257, 3000, 129, 40), (85185, 59803,
+                                                       400_000, 32, 0)])
+def test_dequant_aggregate_bit_equal_to_decode_then_aggregate(
+        cuda, n_src, n_dst, e, f, pad):
+    rng = np.random.default_rng(n_src + f)
+    x = torch.from_numpy(_rows(n_src, f, n_src)).to(cuda)
+    values, scales = ops.quantize_int8(x)
+    src = rng.integers(0, n_src, e + pad).astype(np.int32)
+    dst = np.concatenate([np.sort(rng.integers(0, n_dst, e)),
+                          np.zeros(pad, np.int64)]).astype(np.int32)
+    mask = np.concatenate([rng.random(e) < 0.8, np.zeros(pad, bool)])
+    edges = [torch.from_numpy(a).to(cuda) for a in (src, dst, mask)]
+    ops.reset_launch_counts()
+    got = ops.dequant_aggregate(values, scales, *edges, n_dst)
+    assert ops.launch_counts()["dequant_aggregate"] == 1
+    want, _ = ops.gnn_aggregate(ops.dequantize_int8(values, scales), *edges,
+                                n_dst)
+    assert torch.equal(got, want)
+    plain = ref.dequant_aggregate(*[t.cpu() for t in (values, scales,
+                                                      *edges)], n_dst)
+    assert torch.allclose(got.cpu(), plain, rtol=TOL, atol=TOL)
+    torch.cuda.synchronize()
+
+
+def _swa_inputs(B, T, Hkv, G, dh, seed, dtype, device, at_head):
+    """Random q/K/V, a ring that has wrapped in every sequence, a tenth
+    of its slots invalid.  The query sits at a random point of the ring
+    (the slots after it are in the future) or, ``at_head``, at the
+    newest position, as on the serving path."""
+    rng = np.random.default_rng(seed)
+    H = Hkv * G
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+    q = t(rng.standard_normal((B, H, dh)).astype(np.float32)).to(dtype)
+    k = t(rng.standard_normal((B, T, Hkv, dh)).astype(np.float32)).to(dtype)
+    v = t(rng.standard_normal((B, T, Hkv, dh)).astype(np.float32)).to(dtype)
+    shift = rng.integers(0, T, B)
+    pos = np.stack([np.roll(np.arange(T), s) + T for s in shift])
+    qpos = pos.max(axis=1) if at_head else 2 * T - 1 - shift
+    valid = rng.random((B, T)) < 0.9
+    return (q, k, v, t(pos.astype(np.int32)), t(valid),
+            t(qpos.astype(np.int32)))
+
+
+@pytest.mark.parametrize("B,T,Hkv,G,dh,window,at_head", [
+    (2, 64, 2, 3, 16, 32, False), (1, 128, 1, 1, 64, 128, False),
+    (3, 256, 4, 2, 32, 100, False), (2, 48, 1, 12, 128, None, False),
+    (1, 300, 2, 8, 192, 77, False), (2, 70, 3, 5, 20, 16, False),
+    (8, 8192, 5, 3, 64, 8192, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_decode_matches_plain(cuda, B, T, Hkv, G, dh, window, at_head,
+                                  dtype):
+    q, k, v, pos, valid, qpos = _swa_inputs(B, T, Hkv, G, dh, B * T + dh,
+                                            dtype, cuda, at_head)
+    if window is None:
+        valid[0] = False               # a fully masked row
+    ops.reset_launch_counts()
+    got = ops.swa_attention_decode(q, k, v, pos, valid, qpos, window=window)
+    assert ops.launch_counts()["swa_attention_decode"] == 1
+    want = ref.swa_attention_decode(q, k, v, pos, valid, qpos, window)
+    assert got.dtype == dtype and got.shape == q.shape
+    # bf16: one rounding step of each element apart at most
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-5)
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol), \
+        float((got.float() - want.float()).abs().max())
+    torch.cuda.synchronize()
+
+
+def test_full_width_batcher_on_the_card(cuda):
+    cfg = shape_variant(get_config("smollm-360m"), SHAPES["long_500k"])
+    params = lm.init_params(cfg, device="cuda")
+    bat = ContinuousBatcher(cfg, params, lanes=4, capacity=32,
+                            device="cuda")
+    prompts = next(synthetic_request_stream(cfg, batch=6, prompt_len=12,
+                                            seed=0))
+    for p in prompts:
+        bat.submit(p, max_new=8)
+    ops.reset_launch_counts()
+    done = bat.run_to_completion()
+    assert sorted(r.rid for r in done) == list(range(6))
+    assert all(len(r.generated) == 8 for r in done)
+    assert ops.launch_counts()["swa_attention_decode"] == \
+        bat.steps * cfg.num_layers
     torch.cuda.synchronize()

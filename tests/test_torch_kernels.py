@@ -9,7 +9,14 @@ the segment mean is held to rtol = atol = 1e-6 against the JAX model's
 and its gradient to rtol = atol = 1e-6 against ``jax.vjp`` of it (the
 terms are bit-equal, the sums add in other orders).  The top-k masks are
 bit-equal to the Pallas ``topk_mask`` in interpret mode and the
-``top_fraction`` indices equal to the JAX package's.
+``top_fraction`` indices equal to the JAX package's.  The decode
+attention's plain version is held to JAX's ``layers.decode_attention``
+(the function on the serving path) within 2e-5 in fp32, and to the
+Pallas kernel in interpret mode within the JAX test's own tolerances
+(2e-5 in fp32, 3e-2 in bf16): the three round in other places (the
+Pallas kernel divides after the p·V product, its oracle casts p to V's
+dtype).  The aggregation over an int8 table is held to JAX's
+``ops.dequant_aggregate`` within the segment mean's 1e-6.
 """
 
 import jax
@@ -23,14 +30,19 @@ from repro.kernels import ref as jref
 from repro.core.pruning import degree_scores as jdegree_scores
 from repro.core.pruning import top_fraction as jtop_fraction
 from repro.graphs import bfs_partition, make_client_shards, make_graph
+from repro.exchange import InProcessTransport as JInProcessTransport
 from repro.kernels.quantize import quantize_int8 as pallas_quantize
+from repro.kernels.swa_attention import swa_attention_decode as pallas_swa
 from repro.kernels.topk_mask import topk_mask as pallas_topk
 from repro.models.gnn import _segment_mean
+from repro.models.layers import decode_attention as j_decode_attention
+from repro_torch.exchange import InProcessTransport
 from repro_torch.core.pruning import top_fraction as ttop_fraction
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import exchange_fused as tfused
 from repro_torch.kernels import gnn_aggregate as tagg
 from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import swa_attention as tswa
 from repro_torch.kernels import topk_mask as ttopk
 
 torch.set_num_threads(1)
@@ -51,7 +63,7 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-# -- int8 codec ----------------------------------------------------------------
+# -- int8 codec ---------------------------------------------------------------
 
 @pytest.mark.parametrize("n,h", [(0, 32), (1, 16), (255, 32), (256, 96),
                                  (257, 100), (300, 16), (513, 32)])
@@ -83,7 +95,7 @@ def test_dequantize_bit_exact(n, h):
                                                    jnp.asarray(ns))))
 
 
-# -- fused exchange ops --------------------------------------------------------
+# -- fused exchange ops -------------------------------------------------------
 
 def _table_rows(R, h, n, seed):
     rng = np.random.default_rng(seed)
@@ -152,7 +164,7 @@ def test_dequant_scatter_drops_out_of_range_and_adds_duplicates():
     np.testing.assert_array_equal(_np(t), want)
 
 
-# -- neighbour mean-aggregation ------------------------------------------------
+# -- neighbour mean-aggregation -----------------------------------------------
 
 def _edges(n_src, n_dst, e, f, seed, *, grouped=True, pad=0):
     rng = np.random.default_rng(seed)
@@ -278,7 +290,7 @@ def test_plain_backward_equals_autograd_through_plain_forward(n_src, n_dst,
     torch.testing.assert_close(got, x.grad, rtol=TOL, atol=TOL)
 
 
-# -- topk_mask / top_fraction --------------------------------------------------
+# -- topk_mask / top_fraction -------------------------------------------------
 
 @pytest.mark.parametrize("n,k,ties", [(100, 10, False), (1024, 256, False),
                                       (5000, 1250, False), (10, 10, False),
@@ -322,7 +334,153 @@ def test_top_fraction_matches_jax(kind, frac):
                            random_subset=True))
 
 
-# -- dispatch ------------------------------------------------------------------
+# -- aggregation over an int8 table -----------------------------------------
+
+def _ell_as_edges(idx, mask):
+    n_dst, k = idx.shape
+    return (torch.from_numpy(idx.reshape(-1)),
+            torch.from_numpy(np.repeat(np.arange(n_dst, dtype=np.int32), k)),
+            torch.from_numpy(mask.reshape(-1)))
+
+
+@pytest.mark.parametrize("n_src,n_dst,k,h", [
+    (300, 100, 5, 32), (257, 257, 3, 129), (64, 30, 4, 128)])
+def test_dequant_aggregate_matches_jax(n_src, n_dst, k, h):
+    rng = np.random.default_rng(n_src + h)
+    values, scales = jops._np_quantize_int8(
+        rng.standard_normal((n_src, h)).astype(np.float32))
+    idx = rng.integers(0, n_src, (n_dst, k)).astype(np.int32)
+    mask = rng.random((n_dst, k)) < 0.7
+    got = ops.dequant_aggregate(torch.from_numpy(values),
+                                torch.from_numpy(scales),
+                                *_ell_as_edges(idx, mask), n_dst)
+    assert got.dtype == torch.float32 and got.shape == (n_dst, h)
+    want = jops.dequant_aggregate(values, scales, idx, mask)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
+    two_step, _ = ops.gnn_aggregate(
+        ops.dequantize_int8(torch.from_numpy(values),
+                            torch.from_numpy(scales)),
+        *_ell_as_edges(idx, mask), n_dst)
+    assert torch.equal(got, two_step)
+
+
+def test_pull_then_dequant_aggregate_matches_jax():
+    """The consumer chain of ``test_exchange.py``'s
+    ``test_pull_dequant_aggregate_matches_host_path``: an int8 pull in
+    wire form off an in-process embedding server, fed straight into the
+    aggregation."""
+    hidden = 32
+    gids = np.arange(150)
+    rng = np.random.default_rng(4)
+    vals = [rng.standard_normal((150, hidden)).astype(np.float32)
+            for _ in range(2)]
+    idx = rng.integers(0, 150, (60, 5)).astype(np.int32)
+    mask = rng.random((60, 5)) < 0.8
+    jtr = JInProcessTransport(3, hidden, device_tables=True)
+    ttr = InProcessTransport(3, hidden, device="cpu")
+    for tr in (jtr, ttr):
+        tr.register(gids)
+    jtr.write(gids, vals)
+    ttr.write(gids, [torch.from_numpy(v) for v in vals])
+    jqv, jqs = jtr.gather_quantized(gids)[0]
+    qv, qs = ttr.gather_quantized(gids)[0]
+    np.testing.assert_array_equal(_np(qv), np.asarray(jqv))
+    np.testing.assert_array_equal(_np(qs), np.asarray(jqs))
+    got = ops.dequant_aggregate(qv, qs, *_ell_as_edges(idx, mask), 60)
+    want = jops.dequant_aggregate(jqv, jqs, idx, mask)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# -- sliding-window decode attention ------------------------------------------
+
+def _swa_inputs(B, T, Hkv, G, dh, seed, dtype=np.float32, *,
+                wrapped=False):
+    """The JAX test's inputs; ``wrapped`` gives each sequence a ring that
+    has wrapped (positions rotated past the capacity)."""
+    rng = np.random.default_rng(seed)
+    H = Hkv * G
+    q = rng.standard_normal((B, H, dh)).astype(dtype)
+    k = rng.standard_normal((B, T, Hkv, dh)).astype(dtype)
+    v = rng.standard_normal((B, T, Hkv, dh)).astype(dtype)
+    kv_pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    length = int(rng.integers(T // 2, T))
+    kv_valid = kv_pos < length
+    q_pos = np.full((B,), length - 1, np.int32)
+    if wrapped:
+        for b in range(B):
+            shift = int(rng.integers(1, T))
+            kv_pos[b] = np.roll(np.arange(T), shift) + T
+            q_pos[b] = T + T - 1 - shift
+        kv_valid = rng.random((B, T)) < 0.9
+    return q, k, v, kv_pos, kv_valid, q_pos
+
+
+def _torch_swa(args, window, dtype=torch.float32):
+    q, k, v, kv_pos, kv_valid, q_pos = args
+    return ops.swa_attention_decode(
+        torch.from_numpy(q).to(dtype), torch.from_numpy(k).to(dtype),
+        torch.from_numpy(v).to(dtype), torch.from_numpy(kv_pos),
+        torch.from_numpy(kv_valid), torch.from_numpy(q_pos), window=window)
+
+
+SWA_SHAPES = [(2, 64, 2, 3, 16, 32), (1, 128, 1, 1, 64, 128),
+              (3, 256, 4, 2, 32, 100)]
+
+
+@pytest.mark.parametrize("B,T,Hkv,G,dh,window", SWA_SHAPES + [
+    (2, 48, 1, 12, 128, None), (3, 40, 2, 3, 64, 7)])
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_swa_plain_matches_decode_attention(B, T, Hkv, G, dh, window,
+                                            wrapped):
+    args = _swa_inputs(B, T, Hkv, G, dh, B * T, wrapped=wrapped)
+    q, k, v, kv_pos, kv_valid, q_pos = args
+    if window is None:
+        kv_valid[0] = False            # a fully masked row: uniform average
+    got = _torch_swa(args, window)
+    want = j_decode_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v),
+        q_position=jnp.asarray(q_pos), kv_positions=jnp.asarray(kv_pos),
+        window=window, kv_valid=jnp.asarray(kv_valid))[:, 0]
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    if window is None:
+        np.testing.assert_allclose(
+            _np(got)[0], np.repeat(v[0].mean(axis=0), G, axis=0),
+            rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,Hkv,G,dh,window", SWA_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_plain_matches_the_pallas_kernel(B, T, Hkv, G, dh, window,
+                                             dtype):
+    args = _swa_inputs(B, T, Hkv, G, dh, B * T)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v, kv_pos, kv_valid, q_pos = args
+    want = pallas_swa(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                      jnp.asarray(v, jdt), jnp.asarray(kv_pos),
+                      jnp.asarray(kv_valid), jnp.asarray(q_pos),
+                      window=window, interpret=True)
+    got = _torch_swa(args, window, tdt)
+    assert got.dtype == tdt and got.shape == (B, Hkv * G, dh)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(got.float()), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_swa_wrapper_checks_its_inputs():
+    """The wrapper's checks run before any CUDA call, so wrong inputs
+    raise here too."""
+    q, k, v, kv_pos, kv_valid, q_pos = (
+        torch.from_numpy(a) for a in _swa_inputs(2, 16, 2, 3, 8, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tswa.swa_attention_decode(q, k, v, kv_pos, kv_valid, q_pos,
+                                  window=4)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tswa.swa_attention_decode(q.half(), k.half(), v.half(), kv_pos,
+                                  kv_valid, q_pos, window=4)
+
+
+# -- dispatch -----------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_versions_without_launching():
     ops.reset_launch_counts()
@@ -337,6 +495,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                 torch.ones(3, dtype=torch.bool), 2)
     mean.sum().backward()
     ops.topk_mask(x[:, 0].contiguous(), 5)
+    ops.dequant_aggregate(q, s, torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(3, dtype=torch.int32),
+                          torch.ones(3, dtype=torch.bool), 2)
+    _torch_swa(_swa_inputs(2, 16, 2, 3, 8, 0), 4)
     assert set(ops.launch_counts()) == set(_build.LAUNCHES)
     assert all(c == 0 for c in ops.launch_counts().values())
     with pytest.raises(ValueError, match="no kernel"):
@@ -370,3 +532,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ttopk.topk_mask(x[:, 0].contiguous(), 2)
     with pytest.raises(ValueError, match="CUDA"):
         ttopk.count_ge(x[:, 0].contiguous(), torch.tensor(0.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tagg.dequant_aggregate(torch.zeros((4, 8), dtype=torch.int8),
+                               torch.zeros((4, 1)),
+                               torch.zeros(2, dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32),
+                               torch.ones(2, dtype=torch.bool), 4)

@@ -8,11 +8,11 @@ import pathlib
 
 import pytest
 
-from repro_torch.core import embedding_server, federated, pruning
+from repro_torch.core import embedding_server, federated, pruning, serving
 from repro_torch.exchange import transport
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
-from repro_torch.models import gnn
+from repro_torch.models import gnn, layers, lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -54,7 +54,8 @@ def test_scan_catches_a_jax_import(tmp_path):
     engine.build_serving, engine.ShardServeEngine.__init__,
     transport.make_transport, transport.InProcessTransport.__init__,
     embedding_server.EmbeddingServer.__init__, gnn.init_gnn,
-    gnn.from_jax_leaves,
+    gnn.from_jax_leaves, lm.init_params, lm.from_jax_params, lm.init_cache,
+    layers.init_kv_cache, serving.ContinuousBatcher.__init__,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
