@@ -38,7 +38,7 @@ Phases, each of which fails the run:
    (retention P_4, scored pruning to the top 25 % by degree) with the
    int8 codec, GraphConv L=3 hidden 32 from a seeded init, Adam lr 1e-2.
    The launch counters are zeroed just before the trainer is built (the
-   scored pruning runs the top-k count kernel) and read after one short
+   scored pruning runs the top-k selection kernel) and read after one short
    round: bootstrap push; per client a cache fill, the first 32
    minibatches of its sampler's epoch through ``train_minibatches`` and
    the push plan; then the pushes, FedAvg and evaluation.  Every loss
@@ -48,12 +48,14 @@ Phases, each of which fails the run:
    forward+backward+Adam times, the device's busy share over 16 profiled
    steps and the peak memory are printed; the trained model is then
    published and served once to count early exits.
-7. Training kernels: the aggregation's backward and the top-k count
+7. Training kernels: the aggregation's backward and the top-k selection
    against their plain versions at the slice's shapes (a minibatch's
    layer-2 block, layer 2 of ``full_propagate`` on client 0, client 0's
-   101,526 scores) and at a Papers-like 40M scores: the backward within
-   1e-6 of each row's summed term magnitudes (atomics add in no fixed
-   order), the masks bit-equal, ``top_fraction`` equal to an
+   101,526 scores) and at a Papers-like 40M scores: the backward
+   bit-equal to its plain version on a CPU copy (which adds in the
+   kernel's order) and to itself over two launches, the masks bit-equal
+   to the plain version on the card and on the CPU, the single-pass
+   ``count_ge`` (on no path) exact, ``top_fraction`` equal to an
    ``np.lexsort`` selection.
 8. Training reference: one round of the same strategy on a small graph
    on the card and on the CPU (plain versions) from the same seed; byte
@@ -91,7 +93,9 @@ Phases, each of which fails the run:
    8192 slots seen), 8 teacher-forced steps; logits within 1e-3 of the
    largest logit at every step, TF32 off.
 
-The line before the last is the card's name and power limit; the one
+Each kernel's row (and its other shapes) is then printed as in
+``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
+line before the last is the card's name and power limit; the one
 before it is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 """
@@ -115,10 +119,10 @@ N_QUERIES = 2048
 TRAIN_STEPS = 32              # minibatches per client in the short round
 PROFILED_STEPS = 16
 #: the kernels the serving path runs; training adds the aggregation's
-#: backward and the top-k count
+#: backward and the top-k selection
 SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "gather_quantize",
                  "dequant_scatter", "gnn_aggregate")
-TRAIN_KERNELS = SERVE_KERNELS + ("segment_mean_bwd", "count_ge")
+TRAIN_KERNELS = SERVE_KERNELS + ("segment_mean_bwd", "topk_mask")
 PAPERS_SCORES = 40_000_000    # remote-vertex scores at Papers scale
 LM_ARCH = "smollm-360m"       # the serve launcher's default, full width
 LM_LANES = 8
@@ -238,7 +242,8 @@ def add_entry(report: list, name, source, replaces, err, shape, ms,
               plain_ms, nbytes, library_ms=None, **extra) -> None:
     """One kernel's row of the JSON report (launches filled in later)."""
     row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": 0, "max_abs_err": err,
+           "replaces": replaces, "shape": shape, "launches": 0,
+           "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
            "library_ms": library_ms, **extra}
@@ -247,6 +252,24 @@ def add_entry(report: list, name, source, replaces, err, shape, ms,
           f"{plain_ms:.4f} bound_ms {row['bound_ms']:.4f} library_ms "
           f"{library_ms}", flush=True)
     report.append(row)
+
+
+def print_rows(report: list) -> None:
+    """Each kernel's row as in ``PERF.md`` §6, then its other shapes:
+    launches, ms, dev, plain, lib, bound and share (bound ÷ dev)."""
+    def line(name, case, launches):
+        dev = case.get("device_ms")
+        share = case["bound_ms"] / dev if dev else None
+        print(f"row {name}: shape {case['shape']} launches {launches} "
+              f"ms {case['ms']:.4f} dev {dev} plain {case['plain_ms']:.4f} "
+              f"lib {case['library_ms']} bound {case['bound_ms']:.6f} "
+              f"share {share}", flush=True)
+
+    for row in report:
+        line(row["name"], row, row["launches"])
+        for key, case in row.items():
+            if isinstance(case, dict) and "bound_ms" in case:
+                line(f"{row['name']} {key}", case, "(not on a path)")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -856,8 +879,8 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
 
 
 def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
-    """The aggregation's backward and the top-k count kernel against their
-    plain versions at the training slice's shapes."""
+    """The aggregation's backward and the top-k selection kernel against
+    their plain versions at the training slice's shapes."""
     from repro_torch.core.pruning import top_fraction
     from repro_torch.kernels import gnn_aggregate as agg_mod
     from repro_torch.kernels import ops, ref
@@ -871,34 +894,61 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
     def bwd_case(n_src, e_src, e_dst, mask, n_dst):
         indptr, indices = agg_mod.csr_from_edges(n_src, e_src, e_dst, mask,
                                                  n_dst)
+        t_indptr, t_dst = agg_mod.transpose_csr(indptr, indices, n_src)
         cnt = (indptr[1:] - indptr[:-1]).to(torch.float32)
         g = torch.randn((n_dst, hidden), generator=gen).to(dev)
-        got = agg_mod.segment_mean_csr_bwd(g, indptr, indices, cnt, n_src)
-        want = ref.segment_mean_backward(g, e_src, e_dst, mask, cnt, n_src)
-        mag = ref.segment_mean_backward(g.abs(), e_src, e_dst, mask, cnt,
-                                        n_src)
-        err = max_err(got, want)
-        check(bool(((got - want).abs() <= TOL * mag + TOL).all()),
-              f"segment_mean_csr_bwd off by {err} at {n_src}->{n_dst}")
+        got = agg_mod.segment_mean_csr_bwd(g, t_indptr, t_dst, cnt, n_src)
+        again = agg_mod.segment_mean_csr_bwd(g, t_indptr, t_dst, cnt, n_src)
+        check(torch.equal(got, again), "segment_mean_csr_bwd: two launches "
+              f"differ at {n_src}->{n_dst}")
+        # the plain version on the CPU adds edge by edge in index order,
+        # the kernel's order, so the two must agree bit for bit
+        want = ref.segment_mean_backward(
+            *[a.cpu() for a in (g, e_src, e_dst, mask, cnt)], n_src)
+        err = max_err(got.cpu(), want)
+        check(torch.equal(got.cpu(), want), f"segment_mean_csr_bwd off its "
+              f"plain version on the CPU by {err} at {n_src}->{n_dst}")
         kept = int(indices.shape[0])
-        scaled = (g / cnt.clamp_min(1.0)[:, None])[e_dst[mask].long()]
         src_kept = indices.long()
+        dst_kept = e_dst[mask].long()
         lib_out = torch.zeros((n_src, hidden), device=dev)
+        scaled = (g / cnt.clamp_min(1.0)[:, None])[dst_kept]
+
+        def lib_sequence():
+            out = torch.zeros((n_src, hidden), device=dev)
+            per_dst = g / cnt.clamp_min(1.0)[:, None]
+            return out.index_add_(0, src_kept, per_dst[dst_kept])
+
         return {
-            "err": err, "shape": (n_src, hidden, n_dst, int(e_src.shape[0])),
+            "err": err, "bit_equal_to_cpu_plain": True,
+            "deterministic": True,
+            "shape": (n_src, hidden, n_dst, int(e_src.shape[0])),
             "kept_edges": kept,
-            "ms": time_ms(torch, lambda: agg_mod.segment_mean_csr_bwd(
-                g, indptr, indices, cnt, n_src)),
+            # the most edges one source row (one warp) adds in order
+            "max_src_edges": int((t_indptr[1:] - t_indptr[:-1]).max()),
+            # the Function's backward (only grad_mean checked)
+            "ms": time_ms(torch, lambda: agg_mod._segment_mean_bwd(
+                g, t_indptr, t_dst, cnt, n_src)),
+            # the raw entry, every input checked
+            "entry_ms": time_ms(torch, lambda: agg_mod.segment_mean_csr_bwd(
+                g, t_indptr, t_dst, cnt, n_src)),
             "plain_ms": time_ms(torch, lambda: ref.segment_mean_backward(
                 g, e_src, e_dst, mask, cnt, n_src)),
-            "library_ms": time_ms(torch, lambda: lib_out.index_add_(
+            "library_ms": time_ms(torch, lib_sequence),
+            "library": "sequence of PyTorch calls: zeros, quotient, row "
+                       "gather, index_add_",
+            "library_index_add_ms": time_ms(torch, lambda: lib_out.index_add_(
                 0, src_kept, scaled)),
-            "device_ms": device_ms(torch, lambda: agg_mod.segment_mean_csr_bwd(
-                g, indptr, indices, cnt, n_src),
-                "segment_mean_csr_bwd_kernel"),
-            # grad_mean and cnt read once, indptr and the kept edges'
-            # int32 ids, grad_src written once
-            "nbytes": n_dst * hidden * 4 + n_dst * 4 + (n_dst + 1) * 8
+            # both launches of one call: the quotients, then the gather
+            "device_ms": device_ms(torch, lambda: agg_mod._segment_mean_bwd(
+                g, t_indptr, t_dst, cnt, n_src), "segment_mean_csr_bwd",
+                per_call=True),
+            # the transposed CSR the forward builds for this backward
+            "transpose_ms": time_ms(torch, lambda: agg_mod.transpose_csr(
+                indptr, indices, n_src)),
+            # grad_mean and cnt read once, t_indptr and the kept edges'
+            # int32 destinations, grad_src written once
+            "nbytes": n_dst * hidden * 4 + n_dst * 4 + (n_src + 1) * 8
             + kept * 4 + n_src * hidden * 4,
         }
 
@@ -919,7 +969,11 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
               max(step["err"], full["err"]), step["shape"], step["ms"],
               step["plain_ms"], step["nbytes"],
               library_ms=step["library_ms"], device_ms=step["device_ms"],
-              kept_edges=step["kept_edges"],
+              **{k: step[k] for k in (
+                  "library", "library_index_add_ms", "entry_ms",
+                  "transpose_ms", "kept_edges", "max_src_edges",
+                  "bit_equal_to_cpu_plain",
+                  "deterministic")},
               full_propagate=with_bound(full))
     print("kernel segment_mean_bwd at full_propagate: "
           + json.dumps(report[-1]["full_propagate"]), flush=True)
@@ -928,9 +982,14 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
         n = len(scores_np)
         k = int(np.ceil(frac * n))
         s = torch.from_numpy(scores_np.astype(np.float32)).to(dev)
+        ops.reset_launch_counts()
         got = ops.topk_mask(s, k)
+        check(ops.launch_counts()["topk_mask"] == 1,
+              f"topk_mask: {ops.launch_counts()} launches at n={n}")
         check(torch.equal(got, ref.topk_mask(s, k)),
               f"topk_mask differs from plain at n={n}")
+        check(torch.equal(got.cpu(), ref.topk_mask(s.cpu(), k)),
+              f"topk_mask differs from plain on the CPU at n={n}")
         thr = s[n // 3].reshape(())
         check(int(ops.count_ge(s, thr)) == int((s >= thr).sum()),
               f"count_ge differs from plain at n={n}")
@@ -947,13 +1006,13 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
             "library_ms": time_ms(torch, lambda: lib_mask.scatter_(
                 0, torch.topk(s, k).indices, True), iters=iters),
             "device_ms": device_ms(torch, lambda: ops.topk_mask(s, k),
-                                   "count_ge_kernel", per_call=True),
+                                   "topk_select_kernel"),
             "count_ms": time_ms(torch, lambda: ops.count_ge(s, thr),
                                 iters=iters),
             "count_device_ms": device_ms(torch, lambda: ops.count_ge(s, thr),
                                          "count_ge_kernel"),
             "count_bound_ms": bound_ms(n * 4),
-            "nbytes": 25 * n * 4,      # 25 counting passes over the scores
+            "nbytes": n * 4 + n,       # scores read once, mask written once
         }
 
     frac = trainer.strategy.scored_prune_frac
@@ -962,16 +1021,18 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
     papers = np.minimum(rng.zipf(2.0, PAPERS_SCORES), 10**6).astype(
         np.float64)
     big = topk_case(papers, frac, 10)
-    add_entry(report, "count_ge", "src/repro_torch/csrc/count_ge.cu",
+    add_entry(report, "topk_mask", "src/repro_torch/csrc/topk_select.cu",
               "src/repro/kernels/topk_mask.py:46", 0.0, mine["shape"],
               mine["ms"], mine["plain_ms"], mine["nbytes"],
               library_ms=mine["library_ms"], device_ms=mine["device_ms"],
-              entry="topk_mask (25 count launches)",
-              candidates=mine["candidates"], count_ms=mine["count_ms"],
+              library="torch.topk + scatter_",
+              candidates=mine["candidates"],
+              count_ge="csrc/count_ge.cu, one counting pass, on no path",
+              count_ms=mine["count_ms"],
               count_device_ms=mine["count_device_ms"],
               count_bound_ms=mine["count_bound_ms"],
               papers_40m=with_bound(big))
-    print("kernel count_ge at 40M: " + json.dumps(report[-1]["papers_40m"]),
+    print("kernel topk_mask at 40M: " + json.dumps(report[-1]["papers_40m"]),
           flush=True)
     torch.cuda.synchronize()
     return report
@@ -1435,6 +1496,7 @@ def main() -> int:
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
+    print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
           f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
           f"{json.dumps(lm_counts)}", flush=True)

@@ -4,7 +4,7 @@ Port of ``repro/core/pruning.py``.  The scores are computed on the host
 in numpy (copies of the JAX package's functions, so the same shard gives
 identical scores); the selection of the top-f% goes through the
 ``topk_mask`` threshold bisection (:func:`repro_torch.kernels.ops.topk_mask`:
-the count kernel on the card) and then resolves the threshold's ties, so
+one kernel launch on the card) and then resolves the threshold's ties, so
 the indices are exactly those of the JAX ``top_fraction``.
 
 Scores:

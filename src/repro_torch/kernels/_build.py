@@ -40,8 +40,9 @@ SIGNATURES: dict[str, list] = {
     "quantize_rows": [_P, _P, _I64, _I32, _I64, _P, _P, _P],
     "dequantize_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I32, _P],
     "segment_mean_csr": [_P, _P, _P, _I64, _I32, _P, _P, _P],
-    "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P],
     "count_ge": [_P, _I64, _P, _P, _P],
+    "topk_select": [_P, _I64, _I64, _P, _P, _I32, _P],
     "segment_mean_csr_int8": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "swa_decode": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                    _I32, _I32, _F32, _P, _P],
@@ -56,6 +57,7 @@ LAUNCHES: dict[str, int] = {
     "gnn_aggregate": 0,
     "segment_mean_bwd": 0,
     "count_ge": 0,
+    "topk_mask": 0,
     "dequant_aggregate": 0,
     "swa_attention_decode": 0,
 }

@@ -15,11 +15,14 @@ grouping and raises rather than sorting behind the caller's back.
 
 :class:`GnnAggregate` is the autograd Function both devices go through.
 On the card its forward builds the CSR once (one grouping check per
-call) and saves it; its backward launches ``csrc/segment_mean_csr_bwd.cu``
-on that CSR.  On the CPU both directions are the plain versions
-(``ref.segment_mean`` and ``ref.segment_mean_backward``).  The backward
-runs only where the source needs a gradient — not for layer 1, whose
-source is the feature table.
+call); where the source needs a gradient it also builds the transposed
+CSR (:func:`transpose_csr`) and saves it, and its backward launches
+``csrc/segment_mean_csr_bwd.cu`` on it: a gather per source row with no
+atomics, bit-equal to the plain version on the CPU.  On the CPU both
+directions are the plain versions (``ref.segment_mean`` and
+``ref.segment_mean_backward``).  Layer 1, whose source is the feature
+table, and serving (no gradient) build no transposed CSR and run no
+backward.
 
 :func:`dequant_aggregate` is the same mean over an int8 source table
 with per-row scales (the wire form of a pull), through
@@ -80,26 +83,53 @@ def csr_from_edges(n_src: int, edge_src: torch.Tensor,
     return indptr, es
 
 
-def segment_mean_csr_bwd(grad_mean: torch.Tensor, indptr: torch.Tensor,
-                         indices: torch.Tensor, cnt: torch.Tensor,
-                         n_src: int) -> torch.Tensor:
-    """grad_mean (n_dst, F) fp32 over the forward's CSR and counts →
-    grad_src (n_src, F) fp32; the raw kernel launch."""
+def transpose_csr(indptr: torch.Tensor, indices: torch.Tensor,
+                  n_src: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CSR of :func:`csr_from_edges` (rows = destinations) turned
+    over: (t_indptr (n_src + 1,) int64, t_dst int32), the destination of
+    each kept edge grouped by source, in ascending edge order within a
+    source (a stable sort).  Four launches of torch glue, none of which
+    waits on the host."""
+    src_sorted, order = torch.sort(indices, stable=True)
+    t_indptr = torch.searchsorted(
+        src_sorted, torch.arange(n_src + 1, dtype=torch.int32,
+                                 device=indptr.device))
+    # edge e belongs to the destination d with indptr[d] <= e < indptr[d+1]
+    t_dst = torch.searchsorted(indptr[1:], order, right=True,
+                               out_int32=True)
+    return t_indptr, t_dst
+
+
+def _segment_mean_bwd(grad_mean: torch.Tensor, t_indptr: torch.Tensor,
+                      t_dst: torch.Tensor, cnt: torch.Tensor,
+                      n_src: int) -> torch.Tensor:
+    """The backward's launch on a transposed CSR the caller built."""
     check_cuda(grad_mean, torch.float32, "grad_mean", 2)
-    check_cuda(indptr, torch.int64, "indptr", 1)
-    check_cuda(indices, torch.int32, "indices", 1)
-    check_cuda(cnt, torch.float32, "cnt", 1)
     n_dst, f = grad_mean.shape
-    if indptr.shape[0] != n_dst + 1 or cnt.shape[0] != n_dst:
-        raise ValueError(f"grad_mean has {n_dst} rows for indptr "
-                         f"{tuple(indptr.shape)} and cnt {tuple(cnt.shape)}")
-    grad_src = torch.zeros((n_src, f), dtype=torch.float32,
+    grad_src = torch.empty((n_src, f), dtype=torch.float32,
                            device=grad_mean.device)
-    if indices.shape[0] == 0 or f == 0:
-        return grad_src
-    launch("segment_mean_bwd", "segment_mean_csr_bwd", grad_mean, indptr,
-           indices, cnt, n_dst, f, grad_src)
+    if n_src and f:
+        quotient = torch.empty_like(grad_mean)
+        launch("segment_mean_bwd", "segment_mean_csr_bwd", grad_mean,
+               t_indptr, t_dst, cnt, n_dst, n_src, f, quotient, grad_src)
     return grad_src
+
+
+def segment_mean_csr_bwd(grad_mean: torch.Tensor, t_indptr: torch.Tensor,
+                         t_dst: torch.Tensor, cnt: torch.Tensor,
+                         n_src: int) -> torch.Tensor:
+    """grad_mean (n_dst, F) fp32 over the transposed CSR of the forward
+    (:func:`transpose_csr`) and its counts → grad_src (n_src, F) fp32;
+    the raw kernel launch, with every input checked."""
+    check_cuda(grad_mean, torch.float32, "grad_mean", 2)
+    check_cuda(t_indptr, torch.int64, "t_indptr", 1)
+    check_cuda(t_dst, torch.int32, "t_dst", 1)
+    check_cuda(cnt, torch.float32, "cnt", 1)
+    if t_indptr.shape[0] != n_src + 1 or cnt.shape[0] != grad_mean.shape[0]:
+        raise ValueError(f"t_indptr {tuple(t_indptr.shape)} for {n_src} "
+                         f"source rows, cnt {tuple(cnt.shape)} for grad_mean "
+                         f"{tuple(grad_mean.shape)}")
+    return _segment_mean_bwd(grad_mean, t_indptr, t_dst, cnt, n_src)
 
 
 class GnnAggregate(torch.autograd.Function):
@@ -114,7 +144,9 @@ class GnnAggregate(torch.autograd.Function):
             indptr, indices = csr_from_edges(src.shape[0], edge_src,
                                              edge_dst, edge_mask, n_dst)
             mean, cnt = segment_mean_csr(src, indptr, indices)
-            ctx.save_for_backward(indptr, indices, cnt)
+            if ctx.needs_input_grad[0]:
+                ctx.save_for_backward(
+                    *transpose_csr(indptr, indices, src.shape[0]), cnt)
         else:
             mean, cnt = ref.segment_mean(src, edge_src, edge_dst, edge_mask,
                                          n_dst)
@@ -128,9 +160,9 @@ class GnnAggregate(torch.autograd.Function):
             return None, None, None, None, None
         saved = ctx.saved_tensors
         if grad_mean.device.type == "cuda":
-            indptr, indices, cnt = saved
-            grad_src = segment_mean_csr_bwd(grad_mean.contiguous(), indptr,
-                                            indices, cnt, ctx.n_src)
+            t_indptr, t_dst, cnt = saved
+            grad_src = _segment_mean_bwd(grad_mean.contiguous(), t_indptr,
+                                         t_dst, cnt, ctx.n_src)
         else:
             edge_src, edge_dst, edge_mask, cnt = saved
             grad_src = ref.segment_mean_backward(grad_mean, edge_src,

@@ -108,6 +108,25 @@ def segment_mean_backward(grad_mean: torch.Tensor, edge_src: torch.Tensor,
     return grad_src
 
 
+def segment_mean_backward_csc(grad_mean: torch.Tensor,
+                              t_indptr: torch.Tensor, t_dst: torch.Tensor,
+                              cnt: torch.Tensor, n_src: int) -> torch.Tensor:
+    """:func:`segment_mean_backward` over the transposed CSR of the kept
+    edges (``t_indptr`` over the sources, ``t_dst`` each edge's
+    destination, grouped by source in ascending edge order): the function
+    of ``csrc/segment_mean_csr_bwd.cu``.  On the CPU ``index_add_`` adds
+    the terms one by one in order, so this is bit-equal to
+    :func:`segment_mean_backward` there."""
+    per_dst = grad_mean / torch.clamp_min(cnt, 1.0)[:, None]
+    src = torch.repeat_interleave(
+        torch.arange(n_src, device=grad_mean.device),
+        t_indptr[1:] - t_indptr[:-1], output_size=t_dst.shape[0])
+    grad_src = torch.zeros((n_src, grad_mean.shape[1]),
+                           dtype=grad_mean.dtype, device=grad_mean.device)
+    grad_src.index_add_(0, src, per_dst[t_dst.to(torch.int64)])
+    return grad_src
+
+
 #: Bisection steps of the top-k threshold search (``topk_mask.py:ITERS``).
 TOPK_ITERS = 24
 
@@ -118,17 +137,15 @@ def count_ge(scores: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     return (scores >= thr).sum().to(torch.int32)
 
 
-def topk_mask(scores: torch.Tensor, k: int, *, count=count_ge
-              ) -> torch.Tensor:
+def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Boolean mask holding at least the ``k`` largest scores: the JAX
     kernel's threshold bisection (``repro/kernels/topk_mask.py``) replayed
     in fp32 step for step, so the mask is bit-equal to it.  Ties at the
     threshold are all kept.
 
-    ``count(scores, thr)`` counts ``scores >= thr``; the CUDA wrapper
-    passes its kernel.  Every scalar stays a fp32 tensor on the scores'
-    device (Python floats are float64), and the 24 decisions are taken
-    with ``torch.where``, so the loop never waits on the host."""
+    Every scalar stays a fp32 tensor on the scores' device (Python floats
+    are float64), and the 24 decisions are taken with ``torch.where``, so
+    the loop never waits on the host."""
     n = scores.shape[0]
     if k <= 0:
         return torch.zeros(n, dtype=torch.bool, device=scores.device)
@@ -144,9 +161,9 @@ def topk_mask(scores: torch.Tensor, k: int, *, count=count_ge
     half = f32(0.5)
     for _ in range(TOPK_ITERS):
         mid = half * (lo + hi)
-        above = count(s, mid) > k
+        above = count_ge(s, mid) > k
         lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
-    thr = torch.where(count(s, hi) >= k, hi, lo)
+    thr = torch.where(count_ge(s, hi) >= k, hi, lo)
     return s >= thr
 
 

@@ -290,6 +290,58 @@ def test_plain_backward_equals_autograd_through_plain_forward(n_src, n_dst,
     torch.testing.assert_close(got, x.grad, rtol=TOL, atol=TOL)
 
 
+def _np_transpose(n_src, src, dst, mask):
+    """The transposed CSR of the kept edges, built with numpy: sources'
+    row pointer, and each kept edge's destination grouped by source in
+    ascending edge order."""
+    ks, kd = src[mask].astype(np.int64), dst[mask]
+    order = np.argsort(ks, kind="stable")
+    return (np.r_[0, np.cumsum(np.bincount(ks, minlength=n_src))],
+            kd[order].astype(np.int32))
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,pad,isolated", [
+    (40, 20, 300, 30, False),      # masked edges and a padded tail
+    (257, 100, 1000, 56, True),    # repeated sources, isolated sources
+    (1024, 300, 20000, 0, True),
+    (10, 10, 0, 0, False),         # an empty edge list
+    (10, 10, 0, 8, False),         # only masked edges
+])
+def test_transpose_csr_glue_matches_numpy(n_src, n_dst, e, pad, isolated):
+    _, src, dst, mask = _edges(n_src, n_dst, e, 4, n_src + e, pad=pad)
+    if isolated:                   # sources repeat within a quarter
+        src = src % max(1, n_src // 4)
+    indptr, indices = tagg.csr_from_edges(
+        n_src, torch.from_numpy(src), torch.from_numpy(dst),
+        torch.from_numpy(mask), n_dst)
+    t_indptr, t_dst = tagg.transpose_csr(indptr, indices, n_src)
+    want_ptr, want_dst = _np_transpose(n_src, src, dst, mask)
+    assert t_indptr.dtype == torch.int64 and t_dst.dtype == torch.int32
+    np.testing.assert_array_equal(_np(t_indptr), want_ptr)
+    np.testing.assert_array_equal(_np(t_dst), want_dst)
+
+
+@pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
+    (257, 100, 1000, 32, 56), (1024, 300, 20000, 96, 0), (40, 500, 300, 8, 0),
+    (10, 10, 0, 8, 0)])
+def test_transposed_plain_backward_bit_equal_to_plain(n_src, n_dst, e, f,
+                                                      pad):
+    """The gather over the transposed CSR adds the same terms in the same
+    order as the plain scatter, so on the CPU the two are equal bit for
+    bit (the card's kernel is held to this in tests/test_torch_cuda.py)."""
+    _, src, dst, mask = _edges(n_src, n_dst, e, f, e + 1, pad=pad)
+    src = src % max(1, n_src // 4)
+    es, ed, em = (torch.from_numpy(a) for a in (src, dst, mask))
+    indptr, indices = tagg.csr_from_edges(n_src, es, ed, em, n_dst)
+    cnt = (indptr[1:] - indptr[:-1]).to(torch.float32)
+    g = torch.from_numpy(_rows(n_dst, f, 3))
+    want = ref.segment_mean_backward(g, es, ed, em, cnt, n_src)
+    got = ref.segment_mean_backward_csc(
+        g, *tagg.transpose_csr(indptr, indices, n_src), cnt, n_src)
+    assert torch.equal(got, want)
+    assert np.all(_np(got)[n_src // 4 + 1:] == 0)     # never a source
+
+
 # -- topk_mask / top_fraction -------------------------------------------------
 
 @pytest.mark.parametrize("n,k,ties", [(100, 10, False), (1024, 256, False),
