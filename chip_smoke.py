@@ -17,7 +17,9 @@ Phases, each of which fails the run:
    adds in the kernel's order), and scatter-add with duplicate rows within 1e-6 of each row's
    summed magnitudes (atomics add in no fixed order).  Each is timed with CUDA events beside its
    plain version, the one PyTorch call that computes the same function
-   where there is one, and its bound (bytes moved over 3.35 TB/s).
+   where there is one, and its bound (bytes moved over 3.35 TB/s); the
+   host pieces of one ``dequantize_int8`` call are printed on one line
+   (``tools/launch_pieces.py``).
 3. Reference: publish and serve a small graph on the card and on the CPU
    (plain versions) from the same seed; published tables agree within
    one int8 step and predictions agree.
@@ -69,13 +71,16 @@ Phases, each of which fails the run:
    and within 1e-6 of the plain version on a CPU copy, then timed.
 10. Decode attention kernel: ``swa_attention_decode`` against its plain
    version, fp32 within 2e-5 at the JAX tests' shapes (wrapped rings
-   with part of each ring in the future) plus one with ``window=None``,
-   dh 128, G 12 and a fully masked row; bf16 at the serving path's shape
-   (8 lanes, 8192 slots, 5 kv heads, G 3, dh 64, window 8192, wrapped
-   rings with the query at the newest position, a tenth of the slots
-   invalid) within one bf16 rounding of its plain version (2^-7 of each
-   element plus 1e-5), timed there beside one
-   ``scaled_dot_product_attention`` call.
+   with part of each ring in the future) plus ``window=None`` with a
+   fully masked row, T = 5 (below the cluster's size) and G 12 with dh
+   128 and 256; bf16 at the serving path's shape (8 lanes, 8192 slots,
+   5 kv heads, G 3, dh 64, window 8192, wrapped rings with the query at
+   the newest position, a tenth of the slots invalid) and at a batch of
+   one (row 8'), each within one bf16 rounding of its plain version
+   (2^-7 of each element plus 1e-5) and equal to itself over two
+   launches, timed beside one ``scaled_dot_product_attention`` call.
+   The cluster sizes and the registers and shared memory of the path's
+   variant are printed.
 11. LM decode: smollm-360m at full width in bf16 under long_500k
    (sliding window 8192), seeded random weights on the card, 8 lanes, a
    cache of 8192 slots that has seen 8128 tokens with seeded K/V, then
@@ -274,6 +279,36 @@ def print_rows(report: list) -> None:
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+#: Row 2's host pieces, µs per call, on the launch path before it was made
+#: lean (checks reading ``device.type``, ``torch.empty``,
+#: ``torch.cuda.current_stream().cuda_stream``, one ctypes conversion per
+#: argument): ``tools/launch_pieces.py --src`` on that tree, NVIDIA H100
+#: 80GB HBM3 at 700.00 W (PERF.md §6), printed beside this run's.
+BEFORE_HOST_US = {"dispatch": 0.54, "empty": 7.11, "checks": 2.74,
+                  "stream": 6.26, "args": 1.36, "ctypes": 7.74,
+                  "launch": 19.42, "wrapper": 36.13, "call": 37.45,
+                  "lib": 7.61}
+
+
+def host_pieces(torch) -> dict:
+    """The host pieces of one ``ops.dequantize_int8`` call at 59,803 x 32
+    (``tools/launch_pieces.py``), printed on one line beside those of the
+    launch path before it was made lean (BEFORE_HOST_US)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "tools" \
+        / "launch_pieces.py"
+    spec = importlib.util.spec_from_file_location("launch_pieces", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    us = mod.measure(torch)
+    pairs = ", ".join(f"{k} {BEFORE_HOST_US[k]:.2f} -> {us[k]:.2f}"
+                      for k in BEFORE_HOST_US)
+    print(f"row 2 host pieces (us per call, the earlier path as recorded "
+          f"-> this run): {pairs}", flush=True)
+    return us
+
+
 def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
     from repro_torch.kernels import exchange_fused as fused
     from repro_torch.kernels import gnn_aggregate as agg_mod
@@ -300,7 +335,8 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
         add_entry(report, *args, **kw)
 
     # quantize_int8 / dequantize_int8: the published rows of one client
-    for n, h in ((n_local, hidden), (257, 100), (300, 16), (0, hidden)):
+    for n, h in ((n_local, hidden), (257, 100), (300, 16), (0, hidden),
+                 (300, 3), (1, hidden)):
         x = rand(n, h)
         q, s = ops.quantize_int8(x)
         rq, rs = ref.quantize_int8(x)
@@ -309,6 +345,19 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
         d = ops.dequantize_int8(q, s)
         check(torch.equal(d, ref.dequantize_int8(rq, rs)),
               f"dequantize_int8 differs from plain at {(n, h)}")
+        # a view that starts one row in: its q stays 4-byte aligned where
+        # h % 4 == 0 (the four-values-a-thread kernel); h = 3 takes the
+        # warp-per-row kernel
+        check(torch.equal(ops.dequantize_int8(q[1:], s[1:]),
+                          ref.dequantize_int8(rq[1:], rs[1:])),
+              f"dequantize_int8 differs from plain on a view at {(n, h)}")
+        # q at an odd byte of its storage: the warp-per-row kernel at any h
+        flat = torch.empty(n * h + 1, dtype=torch.int8, device=dev)
+        odd = flat[1:].view(n, h)
+        odd.copy_(q)
+        check(torch.equal(ops.dequantize_int8(odd, s),
+                          ref.dequantize_int8(rq, rs)),
+              f"dequantize_int8 differs from plain at an odd byte, {(n, h)}")
     x = rand(n_local, hidden)
     q, s = ops.quantize_int8(x)
     n = n_local
@@ -326,7 +375,8 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
           n * hidden + n * 4 + n * hidden * 4,
           library_ms=time_ms(torch, lambda: torch.mul(q, s)),
           device_ms=device_ms(torch, lambda: ops.dequantize_int8(q, s),
-                              "dequantize_rows_kernel"))
+                              "dequantize_quads_kernel"),
+          host_us=host_pieces(torch))
 
     # gather_quantize: one client's pull set out of the whole table
     table = rand(cap, hidden)
@@ -1173,25 +1223,71 @@ def swa_inputs(torch, np, B, T, Hkv, G, dh, seed, dtype, *,
             t(qpos.astype(np.int32)))
 
 
-def swa_kernel_phase(torch, np) -> list[dict]:
-    """The decode attention kernel against its plain version: fp32 at the
-    JAX tests' shapes, one with ``window=None``, dh 128, G 12 and a fully
-    masked row (within 2e-5); bf16 at the serving path's shape, where the
-    two differ only in rounding the fp32 result to bf16, so each element
-    is held to one bf16 step of its value (2^-7 of it, plus 1e-5 near
-    zero); timed there beside the plain version and one
-    ``scaled_dot_product_attention`` call.  The bound counts K and V of
-    the kept slots only: the kernel reads no K row of a masked slot, and
-    a masked slot's V row has weight 0."""
+def swa_case(torch, args, window) -> dict:
+    """The decode attention at one bf16 shape: held to one bf16 step of
+    each element of its plain version (2^-7 of it, plus 1e-5 near zero)
+    and to its own bytes over two launches, then timed beside the plain
+    version and one ``scaled_dot_product_attention`` call.  The bound
+    counts K and V of the kept slots only: a masked slot's V row has
+    weight 0 and its K row's score is replaced."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+
+    q, k, v, pos, valid, qpos = args
+    B, T, Hkv, dh = k.shape
+    got = ops.swa_attention_decode(*args, window=window)
+    check(torch.equal(got, ops.swa_attention_decode(*args, window=window)),
+          f"swa not deterministic at {tuple(k.shape)}: two launches differ")
+    got = got.float()
+    want = ref.swa_attention_decode(*args, window).float()
+    err = max_err(got, want)
+    over = float(((got - want).abs()
+                  / (2.0 ** -7 * want.abs() + 1e-5)).max())
+    check(over <= 1.0, f"swa bf16 off by {err} at {tuple(k.shape)}, "
+                       f"{over:.3g} of one bf16 step")
+    keep = valid & (pos <= qpos[:, None]) & (pos > qpos[:, None] - window)
+    mask = keep[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         enable_gqa=True)[:, :, 0]
+    kept = int(keep.sum())
+    return {"shape": (B, T, Hkv, q.shape[1] // Hkv, dh), "err": err,
+            "bf16_steps_off": over, "deterministic": True,
+            "max_want": float(want.abs().max()),
+            "ms": time_ms(torch, lambda: ops.swa_attention_decode(
+                *args, window=window)),
+            "plain_ms": time_ms(torch, lambda: ref.swa_attention_decode(
+                *args, window)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+            "library_max_abs_err": max_err(lib, got),
+            "device_ms": device_ms(torch, lambda: ops.swa_attention_decode(
+                *args, window=window), "swa_decode_kernel"),
+            "kept_slots": kept,
+            # q, the kept slots' K and V rows, positions and validity,
+            # q_pos in; out
+            "nbytes": q.numel() * 2 + kept * Hkv * dh * 2 * 2
+            + pos.numel() * 4 + valid.numel() + B * 4 + q.numel() * 2}
+
+
+def swa_kernel_phase(torch, np) -> list[dict]:
+    """The decode attention kernel against its plain version: fp32 at the
+    JAX tests' shapes, with ``window=None`` and a fully masked row, T
+    below the cluster size, G 12 with dh 128 and 256 (within 2e-5); bf16
+    at the serving path's shape and at a batch of one (row 8'), each
+    checked and timed by ``swa_case``.  Prints the cluster size and what
+    the card compiled for the path's variant."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swa_attention as swa_mod
 
     worst = 0.0
     for B, T, Hkv, G, dh, window in ((2, 64, 2, 3, 16, 32),
                                      (1, 128, 1, 1, 64, 128),
                                      (3, 256, 4, 2, 32, 100),
-                                     (2, 48, 1, 12, 128, None)):
+                                     (2, 48, 1, 12, 128, None),
+                                     (2, 5, 2, 3, 64, None),
+                                     (1, 200, 2, 12, 256, 150)):
         q, k, v, pos, valid, qpos = swa_inputs(torch, np, B, T, Hkv, G, dh,
                                                B * T, torch.float32)
         if window is None:
@@ -1202,48 +1298,39 @@ def swa_kernel_phase(torch, np) -> list[dict]:
                                                window))
         check(err <= 2e-5, f"swa fp32 off by {err} at {(B, T, Hkv, G, dh)}")
         worst = max(worst, err)
-    B, T, Hkv, G, dh, window = LM_LANES, 8192, 5, 3, 64, 8192
-    args = swa_inputs(torch, np, B, T, Hkv, G, dh, 8, torch.bfloat16,
-                      at_head=True)
-    q, k, v, pos, valid, qpos = args
-    got = ops.swa_attention_decode(*args, window=window).float()
-    want = ref.swa_attention_decode(*args, window).float()
-    err = max_err(got, want)
-    over = float(((got - want).abs()
-                  / (2.0 ** -7 * want.abs() + 1e-5)).max())
-    check(over <= 1.0, f"swa bf16 off by {err} at the path's shape, "
-                       f"{over:.3g} of one bf16 step")
+    T, Hkv, G, dh, window = 8192, 5, 3, 64, 8192
+    path = swa_case(torch, swa_inputs(torch, np, LM_LANES, T, Hkv, G, dh, 8,
+                                      torch.bfloat16, at_head=True), window)
+    one = swa_case(torch, swa_inputs(torch, np, 1, T, Hkv, G, dh, 9,
+                                     torch.bfloat16, at_head=True), window)
+    info = swa_mod.kernel_info(torch.bfloat16, dh, G)
+    cluster = {b: swa_mod.default_cluster(b * Hkv, torch.device(DEV))
+               for b in (LM_LANES, 1)}
+    print(f"swa_attention_decode: clusters of {cluster[LM_LANES]} blocks "
+          f"share a sequence's slots at batch {LM_LANES}, of {cluster[1]} at "
+          f"batch 1; the path's variant: {json.dumps(info)}", flush=True)
     print(f"swa_attention_decode: fp32 max|d| {worst:.3g} (<= 2e-5), "
-          f"bf16 max|d| {err:.3g} with max|want| "
-          f"{float(want.abs().max()):.3g}, {over:.3g} of one bf16 step "
-          "(<= 1)", flush=True)
-
-    keep = valid & (pos <= qpos[:, None]) & (pos > qpos[:, None] - window)
-    mask = keep[:, None, None, :]
-    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                         enable_gqa=True)[:, :, 0]
-    lib_err = max_err(lib, got)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True))
-    kept = int(keep.sum())
+          f"bf16 max|d| {path['err']:.3g} with max|want| "
+          f"{path['max_want']:.3g}, {path['bf16_steps_off']:.3g} of one "
+          "bf16 step (<= 1); two launches equal", flush=True)
     report: list = []
     add_entry(report, "swa_attention_decode",
               "src/repro_torch/csrc/swa_decode.cu",
-              "src/repro/kernels/swa_attention.py:55", max(worst, err),
-              (B, T, Hkv, G, dh),
-              time_ms(torch, lambda: ops.swa_attention_decode(
-                  *args, window=window)),
-              time_ms(torch, lambda: ref.swa_attention_decode(*args, window)),
-              # q, the kept slots' K and V rows, positions and validity,
-              # q_pos in; out
-              q.numel() * 2 + kept * Hkv * dh * 2 * 2 + pos.numel() * 4
-              + valid.numel() + B * 4 + q.numel() * 2,
-              library_ms=lib_ms, library_max_abs_err=lib_err,
-              fp32_max_abs_err=worst, kept_slots=kept,
-              bf16_steps_off=over,
-              device_ms=device_ms(torch, lambda: ops.swa_attention_decode(
-                  *args, window=window), "swa_decode_kernel"))
+              "src/repro/kernels/swa_attention.py:55",
+              max(worst, path["err"], one["err"]), path["shape"],
+              path["ms"], path["plain_ms"], path["nbytes"],
+              library_ms=path["library_ms"],
+              library_max_abs_err=path["library_max_abs_err"],
+              fp32_max_abs_err=worst, kept_slots=path["kept_slots"],
+              bf16_steps_off=path["bf16_steps_off"], deterministic=True,
+              cluster=cluster[LM_LANES], cluster_batch_1=cluster[1],
+              variant=info,
+              device_ms=path["device_ms"],
+              batch_1=with_bound({k: one[k] for k in (
+                  "shape", "err", "bf16_steps_off", "ms", "plain_ms",
+                  "library_ms", "device_ms", "kept_slots", "nbytes")}))
+    print("kernel swa_attention_decode at batch 1: "
+          + json.dumps(report[-1]["batch_1"]), flush=True)
     return report
 
 

@@ -54,15 +54,25 @@ __global__ void count_ge_kernel(const float* __restrict__ scores, int64_t n,
 
 }  // namespace
 
-// scores: (n,) fp32; thr: one fp32 on the device; out: one int32 on the
-// device, zeroed by the caller.  n must be > 0.
-REPRO_EXPORT int count_ge(const void* scores, int64_t n, const void* thr,
-                          void* out, void* stream) {
-  int64_t blocks = (n + repro::kThreadsPerBlock - 1) / repro::kThreadsPerBlock;
+// count_ge's arguments, in the order of kernels/_build.py's SIGNATURES,
+// which packs them.  scores: (n,) fp32; thr: one fp32 on the device; out:
+// one int32 on the device, zeroed by the caller.  n must be > 0.
+struct CountGeArgs {
+  const void* scores;
+  int64_t n;
+  const void* thr;
+  void* out;
+  void* stream;
+};
+
+REPRO_EXPORT int count_ge(const CountGeArgs* args) {
+  const CountGeArgs& a = *args;
+  int64_t blocks =
+      (a.n + repro::kThreadsPerBlock - 1) / repro::kThreadsPerBlock;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   count_ge_kernel<<<static_cast<unsigned int>(blocks), repro::kThreadsPerBlock,
-                    0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), n, static_cast<const float*>(thr),
-      static_cast<int*>(out));
+                    0, static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const float*>(a.scores), a.n,
+      static_cast<const float*>(a.thr), static_cast<int*>(a.out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,42 @@
 // A row id outside [0, R) is dropped, like the JAX scatter's mode="drop".
 //
 // What bounds it on the H100: bytes.  One int8 byte and one multiply in,
-// four bytes out, per element.  Design: one warp per row with lanes across
-// the columns, so stores of a destination row are coalesced even though
-// the rows themselves are scattered; the per-row scale is one broadcast
-// load.  Set mode with unique rows is a plain store and bit-exact.  Add
-// mode uses atomicAdd so duplicate rows are safe; their order is not
-// fixed, so duplicates are held to a tolerance and unique rows stay exact
-// (one correctly rounded add each).
+// four bytes out, per element.  Design without rows (the codec's decode):
+// the (n, h) block is one flat run, and each thread moves 4 values, one
+// 32-bit load in and one 16-byte store out, with the row's scale from a
+// cached load; at h = 32 a warp covers 4 rows.  It needs h % 4 == 0, q
+// 4-byte and out 16-byte aligned (and fewer than 2^32 quads); other
+// shapes (h = 3, a view that starts at an odd row) take the warp-per-row
+// kernel below, which writes the same values.  With rows: one warp per
+// row with lanes across the columns, so stores of a destination row are
+// coalesced even though the rows themselves are scattered; the per-row
+// scale is one broadcast load.  Set mode with unique rows is a plain
+// store and bit-exact.  Add mode uses atomicAdd so duplicate rows are
+// safe; their order is not fixed, so duplicates are held to a tolerance
+// and unique rows stay exact (one correctly rounded add each).
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kQuadThreads = 256;
+
+// out[e] = q[e] * scale[e / h] for the quads e = 4i .. 4i + 3 of a flat
+// (n, h) block with h % 4 == 0, so a quad never straddles two rows.
+__global__ void __launch_bounds__(kQuadThreads)
+dequantize_quads_kernel(const char4* __restrict__ q,
+                        const float* __restrict__ scale,
+                        float4* __restrict__ out, unsigned int quads,
+                        unsigned int quads_per_row) {
+  const unsigned int i = blockIdx.x * kQuadThreads + threadIdx.x;
+  if (i >= quads) return;
+  const char4 v = q[i];
+  const float s = __ldg(scale + i / quads_per_row);
+  out[i] = make_float4(__fmul_rn(static_cast<float>(v.x), s),
+                       __fmul_rn(static_cast<float>(v.y), s),
+                       __fmul_rn(static_cast<float>(v.z), s),
+                       __fmul_rn(static_cast<float>(v.w), s));
+}
 
 __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ scale,
@@ -46,15 +71,42 @@ __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
 
 }  // namespace
 
-// q: (n, h) int8; scale: (n,) fp32; out: (R, h) fp32 table (R == n when
-// rows is null); rows: n int32 row ids or null.  n must be > 0.
-REPRO_EXPORT int dequantize_rows(const void* q, const void* scale, void* out,
-                                 const void* rows, int64_t n, int h,
-                                 int64_t R, int accumulate, void* stream) {
-  dequantize_rows_kernel<<<repro::row_blocks(n), repro::kThreadsPerBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), static_cast<const int32_t*>(rows), n, h, R,
-      accumulate);
+// dequantize_rows's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  q: (n, h) int8; scale: (n,) fp32; out:
+// (R, h) fp32 table (R == n when rows is null); rows: n int32 row ids or
+// null.  n must be > 0.
+struct DequantizeRowsArgs {
+  const void* q;
+  const void* scale;
+  void* out;
+  const void* rows;
+  int64_t n;
+  int h;
+  int64_t R;
+  int accumulate;
+  void* stream;
+};
+
+REPRO_EXPORT int dequantize_rows(const DequantizeRowsArgs* args) {
+  const DequantizeRowsArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(a.stream);
+  const int64_t quads = a.n * a.h / 4;
+  if (a.rows == nullptr && a.h % 4 == 0
+      && quads <= 0xffffffffLL - kQuadThreads
+      && reinterpret_cast<uintptr_t>(a.q) % 4 == 0
+      && reinterpret_cast<uintptr_t>(a.out) % 16 == 0) {
+    dequantize_quads_kernel<<<static_cast<unsigned int>(
+                                  (quads + kQuadThreads - 1) / kQuadThreads),
+                              kQuadThreads, 0, st>>>(
+        static_cast<const char4*>(a.q), static_cast<const float*>(a.scale),
+        static_cast<float4*>(a.out), static_cast<unsigned int>(quads),
+        static_cast<unsigned int>(a.h / 4));
+    return static_cast<int>(cudaGetLastError());
+  }
+  dequantize_rows_kernel<<<repro::row_blocks(a.n), repro::kThreadsPerBlock, 0,
+                           st>>>(
+      static_cast<const int8_t*>(a.q), static_cast<const float*>(a.scale),
+      static_cast<float*>(a.out), static_cast<const int32_t*>(a.rows), a.n,
+      a.h, a.R, a.accumulate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,14 +57,27 @@ __global__ void quantize_rows_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// x: rows of `ld` floats (ld >= h); rows: n int32 row ids into x, or null;
-// q: (n, h) int8; scale: (n,) fp32.  n must be > 0.
-REPRO_EXPORT int quantize_rows(const void* x, const void* rows, int64_t n,
-                               int h, int64_t ld, void* q, void* scale,
-                               void* stream) {
-  quantize_rows_kernel<<<repro::row_blocks(n), repro::kThreadsPerBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int32_t*>(rows), n, h,
-      ld, static_cast<int8_t*>(q), static_cast<float*>(scale));
+// quantize_rows's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  x: rows of `ld` floats (ld >= h); rows: n
+// int32 row ids into x, or null; q: (n, h) int8; scale: (n,) fp32.  n must
+// be > 0.
+struct QuantizeRowsArgs {
+  const void* x;
+  const void* rows;
+  int64_t n;
+  int h;
+  int64_t ld;
+  void* q;
+  void* scale;
+  void* stream;
+};
+
+REPRO_EXPORT int quantize_rows(const QuantizeRowsArgs* args) {
+  const QuantizeRowsArgs& a = *args;
+  quantize_rows_kernel<<<repro::row_blocks(a.n), repro::kThreadsPerBlock, 0,
+                         static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const float*>(a.x), static_cast<const int32_t*>(a.rows),
+      a.n, a.h, a.ld, static_cast<int8_t*>(a.q),
+      static_cast<float*>(a.scale));
   return static_cast<int>(cudaGetLastError());
 }

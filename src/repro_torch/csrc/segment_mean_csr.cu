@@ -49,15 +49,28 @@ __global__ void segment_mean_csr_kernel(const float* __restrict__ src,
 
 }  // namespace
 
-// src: (n_src, f) fp32; indptr: (n_dst + 1,) int64; indices: int32 rows of
-// src; mean: (n_dst, f) fp32; cnt: (n_dst,) fp32.  n_dst must be > 0.
-REPRO_EXPORT int segment_mean_csr(const void* src, const void* indptr,
-                                  const void* indices, int64_t n_dst, int f,
-                                  void* mean, void* cnt, void* stream) {
-  segment_mean_csr_kernel<<<repro::row_blocks(n_dst), repro::kThreadsPerBlock,
-                            0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<const int64_t*>(indptr),
-      static_cast<const int32_t*>(indices), n_dst, f,
-      static_cast<float*>(mean), static_cast<float*>(cnt));
+// segment_mean_csr's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  src: (n_src, f) fp32; indptr: (n_dst + 1,)
+// int64; indices: int32 rows of src; mean: (n_dst, f) fp32; cnt: (n_dst,)
+// fp32.  n_dst must be > 0.
+struct SegmentMeanCsrArgs {
+  const void* src;
+  const void* indptr;
+  const void* indices;
+  int64_t n_dst;
+  int f;
+  void* mean;
+  void* cnt;
+  void* stream;
+};
+
+REPRO_EXPORT int segment_mean_csr(const SegmentMeanCsrArgs* args) {
+  const SegmentMeanCsrArgs& a = *args;
+  segment_mean_csr_kernel<<<repro::row_blocks(a.n_dst),
+                            repro::kThreadsPerBlock, 0,
+                            static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const float*>(a.src), static_cast<const int64_t*>(a.indptr),
+      static_cast<const int32_t*>(a.indices), a.n_dst, a.f,
+      static_cast<float*>(a.mean), static_cast<float*>(a.cnt));
   return static_cast<int>(cudaGetLastError());
 }

@@ -104,31 +104,42 @@ __global__ void segment_mean_csr_bwd_kernel(
 
 }  // namespace
 
-// grad_mean: (n_dst, f) fp32; t_indptr: (n_src + 1,) int64; t_dst: int32
-// rows of grad_mean, grouped by source in ascending edge order; cnt:
-// (n_dst,) fp32; quotient: (n_dst, f) fp32 scratch, any contents;
-// grad_src: (n_src, f) fp32, written in full.  n_src must be > 0.  Two
-// launches on the stream: the quotients, then the gather.
-REPRO_EXPORT int segment_mean_csr_bwd(const void* grad_mean,
-                                      const void* t_indptr,
-                                      const void* t_dst, const void* cnt,
-                                      int64_t n_dst, int64_t n_src, int f,
-                                      void* quotient, void* grad_src,
-                                      void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* q = static_cast<float*>(quotient);
-  if (n_dst > 0) {
-    segment_mean_csr_bwd_quotient_kernel<<<repro::row_blocks(n_dst),
+// segment_mean_csr_bwd's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  grad_mean: (n_dst, f) fp32; t_indptr:
+// (n_src + 1,) int64; t_dst: int32 rows of grad_mean, grouped by source in
+// ascending edge order; cnt: (n_dst,) fp32; quotient: (n_dst, f) fp32
+// scratch, any contents; grad_src: (n_src, f) fp32, written in full.
+// n_src must be > 0.  Two launches on the stream: the quotients, then the
+// gather.
+struct SegmentMeanCsrBwdArgs {
+  const void* grad_mean;
+  const void* t_indptr;
+  const void* t_dst;
+  const void* cnt;
+  int64_t n_dst;
+  int64_t n_src;
+  int f;
+  void* quotient;
+  void* grad_src;
+  void* stream;
+};
+
+REPRO_EXPORT int segment_mean_csr_bwd(const SegmentMeanCsrBwdArgs* args) {
+  const SegmentMeanCsrBwdArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(a.stream);
+  float* q = static_cast<float*>(a.quotient);
+  if (a.n_dst > 0) {
+    segment_mean_csr_bwd_quotient_kernel<<<repro::row_blocks(a.n_dst),
                                            repro::kThreadsPerBlock, 0, st>>>(
-        static_cast<const float*>(grad_mean), static_cast<const float*>(cnt),
-        n_dst, f, q);
+        static_cast<const float*>(a.grad_mean),
+        static_cast<const float*>(a.cnt), a.n_dst, a.f, q);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  segment_mean_csr_bwd_kernel<<<repro::row_blocks(n_src),
+  segment_mean_csr_bwd_kernel<<<repro::row_blocks(a.n_src),
                                 repro::kThreadsPerBlock, 0, st>>>(
-      q, static_cast<const int64_t*>(t_indptr),
-      static_cast<const int32_t*>(t_dst), n_src, f,
-      static_cast<float*>(grad_src));
+      q, static_cast<const int64_t*>(a.t_indptr),
+      static_cast<const int32_t*>(a.t_dst), a.n_src, a.f,
+      static_cast<float*>(a.grad_src));
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,19 +49,30 @@ __global__ void segment_mean_csr_int8_kernel(
 
 }  // namespace
 
-// values: (n_src, f) int8; scales: (n_src,) fp32; indptr: (n_dst + 1,)
-// int64; indices: int32 rows of values; mean: (n_dst, f) fp32.  n_dst must
-// be > 0.
-REPRO_EXPORT int segment_mean_csr_int8(const void* values, const void* scales,
-                                       const void* indptr,
-                                       const void* indices, int64_t n_dst,
-                                       int f, void* mean, void* stream) {
-  segment_mean_csr_int8_kernel<<<repro::row_blocks(n_dst),
+// segment_mean_csr_int8's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  values: (n_src, f) int8; scales: (n_src,)
+// fp32; indptr: (n_dst + 1,) int64; indices: int32 rows of values; mean:
+// (n_dst, f) fp32.  n_dst must be > 0.
+struct SegmentMeanCsrInt8Args {
+  const void* values;
+  const void* scales;
+  const void* indptr;
+  const void* indices;
+  int64_t n_dst;
+  int f;
+  void* mean;
+  void* stream;
+};
+
+REPRO_EXPORT int segment_mean_csr_int8(const SegmentMeanCsrInt8Args* args) {
+  const SegmentMeanCsrInt8Args& a = *args;
+  segment_mean_csr_int8_kernel<<<repro::row_blocks(a.n_dst),
                                  repro::kThreadsPerBlock, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(values), static_cast<const float*>(scales),
-      static_cast<const int64_t*>(indptr),
-      static_cast<const int32_t*>(indices), n_dst, f,
-      static_cast<float*>(mean));
+                                 static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const int8_t*>(a.values),
+      static_cast<const float*>(a.scales),
+      static_cast<const int64_t*>(a.indptr),
+      static_cast<const int32_t*>(a.indices), a.n_dst, a.f,
+      static_cast<float*>(a.mean));
   return static_cast<int>(cudaGetLastError());
 }

@@ -301,14 +301,25 @@ cudaError_t limits(Limits* out) {
 
 }  // namespace
 
-// scores: (n,) fp32; mask: (n,) bool (one byte each), written in full;
-// scratch: scratch_ints >= kScratchInts (2080) int32 words on the device,
-// any contents.  Needs 0 < k < n < 2^31.
-REPRO_EXPORT int topk_select(const void* scores, int64_t n, int64_t k,
-                             void* mask, void* scratch, int scratch_ints,
-                             void* stream) {
+// topk_select's arguments, in the order of kernels/_build.py's
+// SIGNATURES, which packs them.  scores: (n,) fp32; mask: (n,) bool (one
+// byte each), written in full; scratch: scratch_ints >= kScratchInts (2080)
+// int32 words on the device, any contents.  Needs 0 < k < n < 2^31.
+struct TopkSelectArgs {
+  const void* scores;
+  int64_t n;
+  int64_t k;
+  void* mask;
+  void* scratch;
+  int scratch_ints;
+  void* stream;
+};
+
+REPRO_EXPORT int topk_select(const TopkSelectArgs* args) {
+  int64_t n = args->n;
+  int64_t k = args->k;
   if (n <= 0 || k <= 0 || k >= n || n > 0x7fffffff ||
-      scratch_ints < kScratchInts)
+      args->scratch_ints < kScratchInts)
     return static_cast<int>(cudaErrorInvalidValue);
   Limits l;
   cudaError_t err = limits(&l);
@@ -320,16 +331,16 @@ REPRO_EXPORT int topk_select(const void* scores, int64_t n, int64_t k,
   int64_t smem = per_block * 4;
   if (smem > l.dyn_smem) smem = l.dyn_smem;
   int64_t cap = smem / 4 / 4 * 4;
-  bool vec = (reinterpret_cast<uintptr_t>(scores) % 16 == 0) &&
-             (reinterpret_cast<uintptr_t>(mask) % 4 == 0);
-  const float* s = static_cast<const float*>(scores);
-  uint8_t* m = static_cast<uint8_t*>(mask);
-  int* sc = static_cast<int*>(scratch);
-  void* args[] = {&s, &n, &k, &m, &sc, &per_block, &cap, &vec};
+  bool vec = (reinterpret_cast<uintptr_t>(args->scores) % 16 == 0) &&
+             (reinterpret_cast<uintptr_t>(args->mask) % 4 == 0);
+  const float* s = static_cast<const float*>(args->scores);
+  uint8_t* m = static_cast<uint8_t*>(args->mask);
+  int* sc = static_cast<int*>(args->scratch);
+  void* kargs[] = {&s, &n, &k, &m, &sc, &per_block, &cap, &vec};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(topk_select_kernel),
-      dim3(static_cast<unsigned int>(grid)), dim3(kThreads), args,
-      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+      dim3(static_cast<unsigned int>(grid)), dim3(kThreads), kargs,
+      static_cast<size_t>(smem), static_cast<cudaStream_t>(args->stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

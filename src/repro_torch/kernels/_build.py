@@ -10,7 +10,13 @@ and :func:`build_all` builds every library in parallel up front.
 
 :func:`launch` is the one place a kernel is launched: it passes the
 caller's CUDA stream, raises when the C entry point reports a CUDA error,
-and adds one to that entry point's launch counter.
+and adds one to that entry point's launch counter.  It is on the host
+path of every kernel call, so it stays lean: each library's entry point
+takes its arguments as one struct whose fields follow :data:`SIGNATURES`,
+packed with :mod:`struct` and passed as one pointer (one ctypes
+conversion instead of one per argument); each entry point is resolved
+once; and the current stream's raw handle is read anew on every call
+through PyTorch's own C binding.
 """
 
 from __future__ import annotations
@@ -20,8 +26,11 @@ import hashlib
 import os
 import pathlib
 import shutil
+import struct
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -34,8 +43,8 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
-#: C signature of each library's entry point (pointers and the stream as
-#: c_void_p, so ctypes never truncates them to 32 bits).
+#: Fields of the argument struct of each library's entry point, in order
+#: (pointers and the stream as c_void_p, 64 bits wide).
 SIGNATURES: dict[str, list] = {
     "quantize_rows": [_P, _P, _I64, _I32, _I64, _P, _P, _P],
     "dequantize_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I32, _P],
@@ -45,7 +54,7 @@ SIGNATURES: dict[str, list] = {
     "topk_select": [_P, _I64, _I64, _P, _P, _I32, _P],
     "segment_mean_csr_int8": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "swa_decode": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                   _I32, _I32, _F32, _P, _P],
+                   _I32, _I32, _I32, _I32, _F32, _P, _P],
 }
 
 #: Launches per wrapper entry point, counted where the kernel is launched.
@@ -63,6 +72,13 @@ LAUNCHES: dict[str, int] = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: :mod:`struct` codes of the fields of an entry point's struct, in native
+#: alignment, as the C compiler lays the struct out.
+_CODES = {_P: "P", _I64: "q", _I32: "i", _F32: "f"}
+
+#: Each launched entry point's ctypes function, the packer of its struct
+#: and its library's error-string function, resolved once.
+_entries: dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -120,26 +136,42 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         _finish_build(name, _start_build(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
 
 
+def packer(kernel: str) -> struct.Struct:
+    """The layout of entry point ``kernel``'s argument struct."""
+    return struct.Struct("@" + "".join(_CODES[t] for t in SIGNATURES[kernel]))
+
+
+def _entry(kernel: str) -> tuple:
+    lib = library(kernel)
+    fn = getattr(lib, kernel)
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_int
+    found = _entries[kernel] = (fn, packer(kernel).pack,
+                                lib.repro_error_string)
+    return found
+
+
+def current_stream() -> int:
+    """The raw handle of the current CUDA stream of the current device
+    (what ``torch.cuda.current_stream().cuda_stream`` reads, without
+    building a Stream object); only CUDA builds of PyTorch have it."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(counter: str, kernel: str, *args) -> None:
     """Launch C entry point ``kernel`` on the current stream and count it
-    under wrapper ``counter``.  Tensors among ``args`` pass as pointers."""
-    import torch
-
-    lib = library(kernel)
-    stream = torch.cuda.current_stream().cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args]
-    code = getattr(lib, kernel)(*c_args, stream)
+    under wrapper ``counter``.  Tensors among ``args`` pass as pointers,
+    None as a null pointer."""
+    fn, pack, error_string = _entries.get(kernel) or _entry(kernel)
+    code = fn(pack(*[a.data_ptr() if isinstance(a, torch.Tensor) else a or 0
+                     for a in args], current_stream()))
     if code != 0:
-        msg = lib.repro_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")
     LAUNCHES[counter] += 1

@@ -22,7 +22,7 @@ from . import topk_mask as _topk
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False

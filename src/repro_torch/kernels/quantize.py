@@ -19,7 +19,7 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, name: str,
                ndim: int) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
     ``ndim`` dimensions — the only layout the kernels take."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -82,6 +82,5 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dequantize_int8(values: torch.Tensor,
                     scales: torch.Tensor) -> torch.Tensor:
     """(n, h) int8 × (n, 1) fp32 → (n, h) fp32 on the card."""
-    out = torch.empty(values.shape, dtype=torch.float32,
-                      device=values.device)
+    out = torch.empty_like(values, dtype=torch.float32)
     return decode_rows("dequantize_int8", values, scales, out, None, False)

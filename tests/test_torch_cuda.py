@@ -38,6 +38,7 @@ from repro_torch.exchange import make_transport
 from repro_torch.gnnserve import build_serving
 from repro_torch.graphs import bfs_partition, make_client_shards, make_graph
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import swa_attention as swa_mod
 from repro_torch.launch.steps import shape_variant
 from repro_torch.models import lm
 from repro_torch.models.gnn import init_gnn
@@ -64,13 +65,31 @@ def _rows(n, h, seed):
     return x
 
 
-@pytest.mark.parametrize("n,h", [(0, 32), (255, 32), (257, 100), (4096, 96)])
-def test_codec_matches_plain(cuda, n, h):
+@pytest.mark.parametrize("n,h,offset,odd_byte", [
+    pytest.param(n, h, 0, False, id=f"{n}-{h}")
+    for n, h in ((0, 32), (255, 32), (257, 100), (4096, 96))] + [
+    (1, 32, 0, False), (1, 3, 0, False), (300, 3, 0, False),
+    (100, 100, 0, False), (64, 32, 1, False), (64, 3, 1, False),
+    (64, 100, 3, False), (64, 32, 0, True), (1, 32, 0, True),
+    (257, 100, 0, True), (300, 3, 0, True)])
+def test_codec_matches_plain(cuda, n, h, offset, odd_byte):
+    """``offset`` > 0 decodes a view that starts ``offset`` rows into the
+    block.  Where h % 4 == 0 its q stays 4-byte aligned and the output is
+    new, so it takes the four-values-a-thread kernel; h = 3 takes the
+    warp-per-row kernel.  ``odd_byte`` puts q at an odd byte of its
+    storage, so the no-rows mode takes the warp-per-row kernel at any h."""
     x = torch.from_numpy(_rows(n, h, n + h)).to(cuda)
     q, s = ops.quantize_int8(x)
     rq, rs = ref.quantize_int8(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+    q, s = q[offset:], s[offset:]
+    if odd_byte:
+        flat = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+        q = flat[1:].view(q.shape).copy_(q)
+        assert q.data_ptr() % 4 != 0
+    ops.reset_launch_counts()
     assert torch.equal(ops.dequantize_int8(q, s), ref.dequantize_int8(q, s))
+    assert ops.launch_counts()["dequantize_int8"] == int(n > offset)
     torch.cuda.synchronize()
 
 
@@ -310,7 +329,10 @@ def _swa_inputs(B, T, Hkv, G, dh, seed, dtype, device, at_head):
     (2, 64, 2, 3, 16, 32, False), (1, 128, 1, 1, 64, 128, False),
     (3, 256, 4, 2, 32, 100, False), (2, 48, 1, 12, 128, None, False),
     (1, 300, 2, 8, 192, 77, False), (2, 70, 3, 5, 20, 16, False),
-    (8, 8192, 5, 3, 64, 8192, True)])
+    (8, 8192, 5, 3, 64, 8192, True), (1, 8192, 5, 3, 64, 8192, True),
+    (2, 5, 2, 3, 64, None, False), (3, 1000, 5, 3, 64, 300, False),
+    (3, 1000, 5, 3, 20, None, False), (1, 200, 2, 12, 256, 150, False),
+    (2, 100, 2, 16, 32, 64, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_decode_matches_plain(cuda, B, T, Hkv, G, dh, window, at_head,
                                   dtype):
@@ -327,6 +349,35 @@ def test_swa_decode_matches_plain(cuda, B, T, Hkv, G, dh, window, at_head,
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-5)
     assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol), \
         float((got.float() - want.float()).abs().max())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cluster,warps", [(1, 1), (2, 4), (8, 2), (16, 4)])
+def test_swa_decode_split_does_not_change_the_function(cuda, monkeypatch,
+                                                       cluster, warps):
+    """Any split of T across a cluster's blocks and their warps stays
+    within the tolerances of the plain version, and a split that leaves
+    most blocks empty (T = 40) adds nothing from them."""
+    monkeypatch.setattr(swa_mod, "CLUSTER", cluster)
+    monkeypatch.setattr(swa_mod, "MAX_CLUSTER", cluster)
+    monkeypatch.setattr(swa_mod, "WARPS", warps)
+    for T, window in ((40, None), (777, 500)):
+        q, k, v, pos, valid, qpos = _swa_inputs(2, T, 2, 3, 64, T,
+                                                torch.float32, cuda, False)
+        valid[1] = False
+        got = ops.swa_attention_decode(q, k, v, pos, valid, qpos,
+                                       window=window)
+        want = ref.swa_attention_decode(q, k, v, pos, valid, qpos, window)
+        assert torch.allclose(got, want, rtol=2e-5, atol=2e-5), \
+            float((got - want).abs().max())
+    torch.cuda.synchronize()
+
+
+def test_swa_decode_is_deterministic_at_the_path_shape(cuda):
+    args = _swa_inputs(8, 8192, 5, 3, 64, 8, torch.bfloat16, cuda, True)
+    a = ops.swa_attention_decode(*args, window=8192)
+    b = ops.swa_attention_decode(*args, window=8192)
+    assert torch.equal(a, b)
     torch.cuda.synchronize()
 
 

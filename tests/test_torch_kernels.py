@@ -519,6 +519,83 @@ def test_swa_plain_matches_the_pallas_kernel(B, T, Hkv, G, dh, window,
                                rtol=tol, atol=tol)
 
 
+def _cluster_swa(args, window, clusters, warps=4, tile=32):
+    """A plain-PyTorch model of ``csrc/swa_decode.cu``'s split, in fp32:
+    T cut into ``clusters`` ranges of ceil(T / clusters) slots rounded up
+    to a tile, each range's tiles dealt round-robin to ``warps`` warps,
+    each warp an online-softmax state (max, sum, accumulator) per query
+    head, and every state merged in (rank, warp) order."""
+    q, k, v, kv_pos, kv_valid, q_pos = (torch.from_numpy(a) for a in args)
+    B, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qs = q.reshape(B, Hkv, H // Hkv, dh) * float(np.float32(1 / np.sqrt(dh)))
+    keep = kv_valid & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        keep = keep & (kv_pos > q_pos[:, None] - window)
+    per = -(-T // clusters)
+    chunk = -(-per // tile) * tile
+    states = []
+    for r in range(clusters):
+        lo, hi = r * chunk, min(T, (r + 1) * chunk)
+        n_tiles = -(-(hi - lo) // tile) if hi > lo else 0
+        for w in range(warps):
+            m = torch.full(qs.shape[:3], -1e30)
+            l = torch.zeros(qs.shape[:3])
+            acc = torch.zeros(qs.shape)
+            for j in range(w, n_tiles, warps):
+                t0 = lo + j * tile
+                t1 = min(hi, t0 + tile)
+                sc = torch.einsum("bkgd,btkd->bkgt", qs, k[:, t0:t1])
+                sc = torch.where(keep[:, None, None, t0:t1], sc, -1e30)
+                m_new = torch.maximum(m, sc.amax(-1))
+                pr = torch.exp(sc - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + pr.sum(-1)
+                acc = acc * corr[..., None] \
+                    + torch.einsum("bkgt,btkd->bkgd", pr, v[:, t0:t1])
+                m = m_new
+            states.append((m, l, acc))
+    mx = torch.stack([st[0] for st in states]).amax(0)
+    den = sum(st[1] * torch.exp(st[0] - mx) for st in states)
+    num = sum(st[2] * torch.exp(st[0] - mx)[..., None] for st in states)
+    return (num / den[..., None]).reshape(B, H, dh)
+
+
+@pytest.mark.parametrize("clusters", [1, 8, 16])
+@pytest.mark.parametrize("B,T,Hkv,G,dh,window,wrapped", [
+    (2, 64, 2, 3, 16, 32, False), (1, 128, 1, 1, 64, 128, False),
+    (3, 256, 4, 2, 32, 100, True), (2, 5, 2, 3, 16, None, False),
+    (2, 70, 1, 12, 32, 16, True), (3, 300, 2, 3, 64, None, True)])
+def test_cluster_split_matches_the_jax_references(B, T, Hkv, G, dh, window,
+                                                  wrapped, clusters):
+    """The kernel's split of T across a cluster, modelled on the CPU, is
+    held to the Pallas kernel (interpret mode) and to ``decode_attention``
+    before any card sees it: T below the cluster size (empty blocks), T
+    no multiple of the tile, G = 12, and with ``window=None`` a fully
+    masked row, which must average V over every block's slots."""
+    args = _swa_inputs(B, T, Hkv, G, dh, B * T + dh, wrapped=wrapped)
+    q, k, v, kv_pos, kv_valid, q_pos = args
+    if window is None:
+        kv_valid[0] = False
+    got = _np(_cluster_swa(args, window, clusters))
+    want = j_decode_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v),
+        q_position=jnp.asarray(q_pos), kv_positions=jnp.asarray(kv_pos),
+        window=window, kv_valid=jnp.asarray(kv_valid))[:, 0]
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    # the Pallas kernel takes an int window: 4T reaches back past every slot
+    pallas = pallas_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(kv_pos), jnp.asarray(kv_valid),
+                        jnp.asarray(q_pos),
+                        window=4 * T if window is None else window,
+                        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=2e-5, atol=2e-5)
+    if window is None:
+        np.testing.assert_allclose(
+            got[0], np.repeat(v[0].mean(axis=0), G, axis=0), rtol=2e-5,
+            atol=2e-5)
+
+
 def test_swa_wrapper_checks_its_inputs():
     """The wrapper's checks run before any CUDA call, so wrong inputs
     raise here too."""
@@ -533,6 +610,56 @@ def test_swa_wrapper_checks_its_inputs():
 
 
 # -- dispatch -----------------------------------------------------------------
+
+def test_launch_passes_pointers_counts_once_and_raises(monkeypatch):
+    """``_build.launch`` with a stand-in entry point and packer: tensors
+    pass as their ``data_ptr`` and None as 0, the stream comes last, a
+    launch counts once, and a nonzero code raises naming the kernel
+    without counting."""
+    calls, codes = [], [0, 2]
+
+    def entry(packed):
+        calls.append(packed)
+        return codes.pop(0)
+
+    monkeypatch.setitem(_build._entries, "stand_in",
+                        (entry, lambda *fields: fields,
+                         lambda code: b"stand-in error"))
+    monkeypatch.setattr(_build, "current_stream", lambda: 77)
+    monkeypatch.setitem(_build.LAUNCHES, "stand_in", 0)
+    t = torch.arange(6, dtype=torch.float32)
+    _build.launch("stand_in", "stand_in", t, 3, None, 1.5)
+    assert calls == [(t.data_ptr(), 3, 0, 1.5, 77)]
+    assert _build.LAUNCHES["stand_in"] == 1
+    with pytest.raises(RuntimeError,
+                       match=r"stand_in launch failed: CUDA error 2 "
+                             r"\(stand-in error\)"):
+        _build.launch("stand_in", "stand_in", t, 3, None, 1.5)
+    assert _build.LAUNCHES["stand_in"] == 1
+    assert len(calls) == 2
+
+
+def test_packed_structs_match_the_signatures():
+    """Each library's entry point takes one struct whose fields are those
+    of ``SIGNATURES`` in order, so ``struct.pack`` in native alignment lays
+    them out as the C compiler does."""
+    import re
+
+    c_type = {"P": "void*", "q": "int64_t", "i": "int", "f": "float"}
+    for name in _build.SIGNATURES:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        exports = re.findall(r"REPRO_EXPORT int (\w+)\(", src)
+        assert name in exports and set(exports) <= {name, f"{name}_info"}
+        arg = re.search(r"REPRO_EXPORT int " + name + r"\(const (\w+)\* "
+                        r"args\)", src)
+        assert arg, name
+        body = re.search(r"struct " + arg.group(1) + r" \{([^}]*)\};", src)
+        assert body, name
+        fields = [f.strip().rsplit(" ", 1)[0].replace("const ", "")
+                  for f in body.group(1).split(";") if f.strip()]
+        codes = _build.packer(name).format.lstrip("@")
+        assert [c_type[c] for c in codes] == fields, name
+
 
 def test_cpu_tensors_take_the_plain_versions_without_launching():
     ops.reset_launch_counts()
