@@ -11,14 +11,18 @@ Phases, each of which fails the run:
    from ``src/repro_torch/csrc`` (one nvcc per source, in parallel) and
    build the reddit-preset graph, its partition and client shards.
 2. Kernels: each kernel entry point against its plain PyTorch version on
-   the card, at the slice's shapes and on edge cases: the int8 codec,
-   gather and scatter-set bit-exact; the segment mean within rtol = atol
-   = 1e-6 of its plain version run on a CPU copy of the inputs (which
-   adds in the kernel's order), and scatter-add with duplicate rows within 1e-6 of each row's
-   summed magnitudes (atomics add in no fixed order).  Each is timed with CUDA events beside its
-   plain version, the one PyTorch call that computes the same function
-   where there is one, and its bound (bytes moved over 3.35 TB/s); the
-   host pieces of one ``dequantize_int8`` call are printed on one line
+   the card, at the slice's shapes and on edge cases: the int8 codec
+   (the encode also on a column slice and at an odd float, plain and
+   gathered), gather and scatter-set bit-exact; the scatter-add with
+   duplicate rows bit-equal to the plain version on a CPU copy (a
+   sequential ``index_add_``) and to itself; the segment mean, over the
+   CSR built on the host and over the glue's, bit-equal to its plain
+   version run on a CPU copy of the inputs (which adds in the kernel's
+   order), with the kept-degree statistics of layer 1 printed.  Each is
+   timed with CUDA events beside its plain version, the one PyTorch call
+   that computes the same function where there is one, and its bound
+   (bytes moved over 3.35 TB/s); the host pieces of one
+   ``dequantize_int8`` call are printed on one line
    (``tools/launch_pieces.py``).
 3. Reference: publish and serve a small graph on the card and on the CPU
    (plain versions) from the same seed; published tables agree within
@@ -27,7 +31,9 @@ Phases, each of which fails the run:
    GraphConv L=3 hidden 32 from a seeded init, in-process transport on
    the card with the int8 codec: bootstrap push, export for serving,
    then 2048 Zipf queries (half at threshold 1.0, half at 0.5)
-   through the batched early-exit serving plane.  The launch counters
+   through the batched early-exit serving plane.  Here and in step 6
+   every aggregation runs over the CSRs built on the host with the
+   blocks and shards: a call of the card's CSR glue fails the run.  The launch counters
    are zeroed just before and read just after.  Queries/s and latency
    come from this uninstrumented drain; the per-forward and per-layer
    breakdown (host planning, cache) from a second drain of fresh
@@ -46,11 +52,19 @@ Phases, each of which fails the run:
    the push plan; then the pushes, FedAvg and evaluation.  Every loss
    must be finite, each client's last 8 losses must average below its
    first 8, and the seven kernels of serving and training must have
-   launched.  Set-up seconds by phase, per-step sampling / block copy /
+   launched.  Every aggregation launch of the round is also tallied by
+   where it ran (a minibatch block or ``full_propagate``) and at what
+   shape, from the launch counter across each of the model's
+   aggregation calls; the tally must account for all of them.  Set-up seconds by phase, per-step sampling / block copy /
    forward+backward+Adam times, the device's busy share over 16 profiled
    steps and the peak memory are printed; the trained model is then
    published and served once to count early exits.
-7. Training kernels: the aggregation's backward and the top-k selection
+7. Training kernels: one training step's forward and backward and two
+   ``full_propagate`` calls run under ``set_sync_debug_mode("error")``
+   (no aggregation call waits on the card); the aggregation forward at
+   each of a minibatch's three blocks (row 5'' is layer 2's) bit-equal
+   to its plain version on a CPU copy, each with the launches the round
+   made at its shape (the tally); the aggregation's backward and the top-k selection
    against their plain versions at the slice's shapes (a minibatch's
    layer-2 block, layer 2 of ``full_propagate`` on client 0, client 0's
    101,526 scores) and at a Papers-like 40M scores: the backward
@@ -68,7 +82,8 @@ Phases, each of which fails the run:
    server on the card, pulled back in int8 with ``gather_quantized`` and
    aggregated by ``dequant_aggregate`` (counters zeroed just before,
    read just after); bit-equal to ``gnn_aggregate(dequantize_int8)``
-   and within 1e-6 of the plain version on a CPU copy, then timed.
+   over the host CSR and over the glue's, and within 1e-6 of the plain
+   version on a CPU copy, then timed.
 10. Decode attention kernel: ``swa_attention_decode`` against its plain
    version, fp32 within 2e-5 at the JAX tests' shapes (wrapped rings
    with part of each ring in the future) plus ``window=None`` with a
@@ -274,7 +289,8 @@ def print_rows(report: list) -> None:
         line(row["name"], row, row["launches"])
         for key, case in row.items():
             if isinstance(case, dict) and "bound_ms" in case:
-                line(f"{row['name']} {key}", case, "(not on a path)")
+                line(f"{row['name']} {key}", case,
+                     case.get("launches", "(not on a path)"))
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -309,11 +325,59 @@ def host_pieces(torch) -> dict:
     return us
 
 
+def kept_degree(np, indptr) -> dict:
+    """Max, p99 and mean of a CSR's kept edges per row."""
+    deg = np.diff(indptr.cpu().numpy())
+    return {"max": int(deg.max()), "p99": float(np.percentile(deg, 99)),
+            "mean": float(deg.mean())}
+
+
+def agg_bytes(src, n_dst: int, kept: int) -> int:
+    """The aggregation's compulsory bytes as the path calls it, over the
+    host-built CSR, counted as in ``PERF.md`` §6: the table, the int64 row
+    pointer, the kept edges' int32 source ids, the int32 row order, and
+    the mean and count out."""
+    return src.numel() * 4 + (n_dst + 1) * 8 + kept * 4 + n_dst * 4 \
+        + n_dst * (src.shape[1] + 1) * 4
+
+
+def agg_edge_list_bytes(src, e_all: int, kept: int, n_dst: int) -> int:
+    """The bytes a call over the padded edge lists alone must move (the
+    earlier count of row 5's bound): the table, every edge's mask byte, the
+    kept edges' int32 source and destination ids, and the mean and count
+    out."""
+    return src.numel() * 4 + e_all + kept * (4 + 4) \
+        + n_dst * (src.shape[1] + 1) * 4
+
+
+def agg_check(torch, what: str, src, edges: tuple, n_dst: int, csr):
+    """The aggregation over the host-built ``csr`` and over the glue's,
+    each bit-equal to the plain version on a CPU copy of the inputs (which
+    adds in the kernel's edge order; on the card the plain version's
+    index_add_ adds with atomics in no fixed order).  Returns the max
+    difference from the CPU run (0) and from the plain version on the
+    card."""
+    from repro_torch.kernels import ops, ref
+
+    want, wcnt = ref.segment_mean(src.cpu(), *[a.cpu() for a in edges],
+                                  n_dst)
+    for prebuilt in (csr, None):
+        got, cnt = ops.gnn_aggregate(src, *edges, n_dst, prebuilt)
+        how = "the host CSR" if prebuilt is not None else "the glue's CSR"
+        check(torch.equal(cnt.cpu(), wcnt),
+              f"gnn_aggregate counts differ from plain ({what}, {how})")
+        check(torch.equal(got.cpu(), want),
+              f"gnn_aggregate off its plain version on the CPU by "
+              f"{max_err(got.cpu(), want)} ({what}, {how})")
+    card, _ = ref.segment_mean(src, *edges, n_dst)
+    return max_err(got.cpu(), want), max_err(got, card)
+
+
 def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
     from repro_torch.kernels import exchange_fused as fused
     from repro_torch.kernels import gnn_aggregate as agg_mod
     from repro_torch.kernels import ops, ref
-    from repro_torch.models.gnn import shard_to_arrays
+    from repro_torch.models.gnn import shard_to_arrays, to_device
 
     dev = "cuda"
     gen = torch.Generator(device="cpu").manual_seed(1234)
@@ -358,6 +422,23 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
         check(torch.equal(ops.dequantize_int8(odd, s),
                           ref.dequantize_int8(rq, rs)),
               f"dequantize_int8 differs from plain at an odd byte, {(n, h)}")
+    # the encode of a column slice (rows h + 8 floats apart, 16-byte
+    # aligned) and of a table at an odd float, each plain and gathered
+    for h in (3, 4, 32, 100, 128):
+        wide = rand(300, h + 8)
+        rows_h = torch.from_numpy(np.random.default_rng(h).integers(
+            0, 300, 517)).to(dev)
+        flat = torch.empty(300 * h + 1, device=dev)
+        odd = flat[1:].view(300, h)
+        odd.copy_(wide[:, :h])
+        for view in (wide[:, 4:4 + h], odd):
+            for got, want in ((ops.quantize_int8(view),
+                               ref.quantize_int8(view)),
+                              (ops.gather_quantize(view, rows_h.cpu()),
+                               ref.gather_quantize(view, rows_h))):
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]),
+                      f"the encode differs from plain on a view at h = {h}")
     x = rand(n_local, hidden)
     q, s = ops.quantize_int8(x)
     n = n_local
@@ -367,7 +448,7 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
           time_ms(torch, lambda: ref.quantize_int8(x)),
           n * hidden * 4 + n * hidden + n * 4,
           device_ms=device_ms(torch, lambda: ops.quantize_int8(x),
-                              "quantize_rows_kernel"))
+                              "quantize_quads_kernel"))
     entry("dequantize_int8", "src/repro_torch/csrc/dequantize_rows.cu",
           "src/repro/kernels/quantize.py:191", 0.0, (n, hidden),
           time_ms(torch, lambda: ops.dequantize_int8(q, s)),
@@ -396,7 +477,7 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
           n_pull * 4 + n_pull * hidden * 4 + n_pull * hidden + n_pull * 4,
           entry_ms=time_ms(torch, lambda: ops.gather_quantize(table, rows)),
           device_ms=device_ms(torch, lambda: fused.gather_quantize(table, idx),
-                              "quantize_rows_kernel"))
+                              "quantize_quads_kernel"))
 
     # dequant_scatter: set (unique rows, plus a dropped sentinel) and add
     pub_rows = np.random.default_rng(6).choice(num_vertices, size=n_local,
@@ -413,17 +494,23 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
                          accumulate=True)
     check(torch.equal(t_k, t_p),
           "dequant_scatter (add, unique rows) differs from plain")
-    # duplicate rows: atomics add in no fixed order, so the difference is
-    # held to TOL times the summed magnitudes of each row's terms
+    # duplicate rows (and a dropped id) add in index order, as the plain
+    # version's index_add_ does on the CPU: equal bit for bit, and the
+    # same bytes launch after launch
     dup = np.random.default_rng(7).integers(0, n_local // 2, size=n_local)
-    dup_t = torch.from_numpy(dup).to(dev)
-    mag = ref.dequant_scatter_(t_p.abs(), dup_t, pv.abs(), ps,
-                               accumulate=True)
+    dup[1] = -1
+    before = t_k.clone()
+    want_add = ref.dequant_scatter_(t_p.cpu(), torch.from_numpy(dup),
+                                    pv.cpu(), ps.cpu(), accumulate=True)
     ops.dequant_scatter_(t_k, dup, pv, ps, accumulate=True)
-    ref.dequant_scatter_(t_p, dup_t, pv, ps, accumulate=True)
-    add_err = max_err(t_k, t_p)
-    check(bool(((t_k - t_p).abs() <= TOL * mag + TOL).all()),
-          f"dequant_scatter (add, duplicate rows) off by {add_err}")
+    add_err = max_err(t_k.cpu(), want_add)
+    check(torch.equal(t_k.cpu(), want_add),
+          f"dequant_scatter (add, duplicate rows) off the plain version on "
+          f"the CPU by {add_err}")
+    check(torch.equal(ops.dequant_scatter_(before, dup, pv, ps,
+                                           accumulate=True), t_k),
+          "dequant_scatter (add, duplicate rows): two launches differ")
+    t_p.copy_(t_k)
     pidx = ops.row_index(pub_rows, cap, dev, check=False)
     entry("dequant_scatter", "src/repro_torch/csrc/dequantize_rows.cu",
           "src/repro/kernels/exchange_fused.py:180", add_err,
@@ -437,71 +524,63 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
           device_ms=device_ms(torch, lambda: fused.dequant_scatter_(
               t_k, pidx, pv, ps), "dequantize_rows_kernel"))
 
-    # gnn_aggregate: layer 1 of full_propagate on one client's shard
+    # gnn_aggregate: layer 1 of full_propagate on one client's shard, over
+    # the CSR of its local edges built on the host (the path's call)
     arr = shard_to_arrays(sh, dev)
-    remote = arr["src_is_remote"]
     feats = arr["features"]
     src_tbl = torch.cat([feats, torch.zeros((1, feats.shape[1]),
                                             device=dev)], 0)
-    src_idx = torch.where(remote, sh.num_local, arr["edge_src"])
-    mask = ~remote
-    e_dst = arr["edge_dst"]
-    # The kernel sums each row in ascending edge order; the plain version
-    # run on a CPU copy of the same inputs adds in that order too, while
-    # on the card its index_add_ uses atomics in no fixed order.  So the
-    # kernel is held to the CPU run at TOL, and its difference from the
-    # card run is reported beside it.
-    def agg_check(what, args, n_dst):
-        got, cnt = ops.gnn_aggregate(*args, n_dst)
-        want, wcnt = ref.segment_mean(*[a.cpu() for a in args], n_dst)
-        card, _ = ref.segment_mean(*args, n_dst)
-        err = max_err(got.cpu(), want)
-        check(torch.equal(cnt.cpu(), wcnt),
-              f"gnn_aggregate counts differ from plain ({what})")
-        check(torch.allclose(got.cpu(), want, rtol=TOL, atol=TOL),
-              f"gnn_aggregate off by {err} ({what})")
-        return err, max_err(got, card)
-
-    agg_err, card_err = agg_check("layer 1", (src_tbl, src_idx, e_dst, mask),
-                                  n_local)
+    local = arr["local"]
+    edges = (local["edge_src"], local["edge_dst"], local["edge_mask"])
+    csr = local["csr"]
+    agg_err, card_err = agg_check(torch, "layer 1", src_tbl, edges, n_local,
+                                  csr)
     # a serving-style block: padded tail with dst=0 and the mask off
     e = 5000
     bs = torch.randint(0, 700, (e,), generator=gen)
     bd = torch.sort(torch.randint(0, 300, (e,), generator=gen)).values
     bm = torch.rand(e, generator=gen) < 0.8
     pad = 1000
-    bs = torch.cat([bs, torch.zeros(pad, dtype=bs.dtype)]).to(dev)
-    bd = torch.cat([bd, torch.zeros(pad, dtype=bd.dtype)]).to(dev)
-    bm = torch.cat([bm, torch.zeros(pad, dtype=torch.bool)]).to(dev)
-    errs = agg_check("padded block", (rand(700, hidden), bs, bd, bm), 384)
+    bs = torch.cat([bs, torch.zeros(pad, dtype=bs.dtype)])
+    bd = torch.cat([bd, torch.zeros(pad, dtype=bd.dtype)])
+    bm = torch.cat([bm, torch.zeros(pad, dtype=torch.bool)])
+    blk_csr = to_device(agg_mod.csr_arrays(700, bs.numpy(), bd.numpy(),
+                                           bm.numpy(), 384), dev)
+    errs = agg_check(torch, "padded block", rand(700, hidden),
+                     tuple(a.to(dev) for a in (bs, bd, bm)), 384, blk_csr)
     agg_err, card_err = max(agg_err, errs[0]), max(card_err, errs[1])
-    indptr, indices = agg_mod.csr_from_edges(src_tbl.shape[0], src_idx, e_dst,
-                                             mask, n_local)
-    n_edges = int(indices.shape[0])
-    e_all = int(src_idx.shape[0])
-    gathered = src_tbl[indices.long()]
-    dst_kept = e_dst[mask].long()
+    n_edges = int(csr.indices.shape[0])
+    e_all = int(edges[0].shape[0])
+    gathered = src_tbl[csr.indices.long()]
+    dst_kept = edges[1][edges[2]].long()
     f = src_tbl.shape[1]
     lib_out = torch.zeros((n_local, f), device=dev)
+    degree = kept_degree(np, csr.indptr)
+    print(f"gnn_aggregate layer 1: kept degree {json.dumps(degree)}",
+          flush=True)
     entry("gnn_aggregate", "src/repro_torch/csrc/segment_mean_csr.cu",
           "src/repro/kernels/gnn_aggregate.py:69", agg_err,
           (tuple(src_tbl.shape), e_all, n_local),
-          time_ms(torch, lambda: ops.gnn_aggregate(src_tbl, src_idx, e_dst,
-                                                   mask, n_local)),
-          time_ms(torch, lambda: ref.segment_mean(src_tbl, src_idx, e_dst,
-                                                  mask, n_local)),
-          # the table, every edge's mask byte, the int32 ids of the kept
-          # edges only (a masked edge's ids do not change the result), and
-          # the mean and count out
-          src_tbl.numel() * 4 + e_all + n_edges * (4 + 4)
-          + n_local * (f + 1) * 4,
+          time_ms(torch, lambda: ops.gnn_aggregate(src_tbl, *edges, n_local,
+                                                   csr)),
+          time_ms(torch, lambda: ref.segment_mean(src_tbl, *edges, n_local)),
+          agg_bytes(src_tbl, n_local, n_edges),
           library_ms=time_ms(torch, lambda: lib_out.index_reduce_(
               0, dst_kept, gathered, "mean", include_self=False)),
           kernel_ms=time_ms(torch, lambda: agg_mod.segment_mean_csr(
-              src_tbl, indptr, indices)),
-          kept_edges=n_edges, max_abs_err_vs_card_plain=card_err,
-          device_ms=device_ms(torch, lambda: agg_mod.segment_mean_csr(
-              src_tbl, indptr, indices), "segment_mean_csr_kernel"))
+              src_tbl, csr.indptr, csr.indices, csr.order)),
+          # the same call over the edge lists alone: the CSR built by
+          # torch glue on the card, two host syncs
+          edge_list_ms=time_ms(torch, lambda: ops.gnn_aggregate(
+              src_tbl, *edges, n_local)),
+          # bound_ms counts the bytes of the call over the host CSR; this,
+          # those of a call over the edge lists alone (the earlier count)
+          bound_edge_list_ms=bound_ms(agg_edge_list_bytes(
+              src_tbl, e_all, n_edges, n_local)),
+          kept_edges=n_edges, kept_degree=degree,
+          max_abs_err_vs_card_plain=card_err,
+          device_ms=device_ms(torch, lambda: ops.gnn_aggregate(
+              src_tbl, *edges, n_local, csr), "segment_mean_csr_kernel"))
     torch.cuda.synchronize()
     return report
 
@@ -622,6 +701,34 @@ def timed(owner, name: str, log: list, args_log: list | None = None):
             setattr(owner, name, inner)
         else:
             delattr(owner, name)   # the class's method shows through again
+
+
+@contextlib.contextmanager
+def agg_launches_by_shape(tally: dict):
+    """Within the block, each call of ``models/gnn.py``'s ``_aggregate``
+    (the one caller of ``ops.gnn_aggregate`` on the paths) adds the change
+    of the ``gnn_aggregate`` launch counter across the call to
+    ``tally[(where, n_src, f, n_dst)]``: ``where`` is "block" for a
+    minibatch or serving block and "propagate" for ``full_propagate``'s
+    edge sets."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn as gnn_mod
+
+    inner = gnn_mod._aggregate
+
+    def counted(h_src, edges, n_dst):
+        before = ops.launch_counts()["gnn_aggregate"]
+        out = inner(h_src, edges, n_dst)
+        key = ("block" if "dst_remote_mask" in edges else "propagate",
+               *h_src.shape, n_dst)
+        tally[key] = (tally.get(key, 0)
+                      + ops.launch_counts()["gnn_aggregate"] - before)
+        return out
+    gnn_mod._aggregate = counted
+    try:
+        yield tally
+    finally:
+        gnn_mod._aggregate = inner
 
 
 def breakdown(torch, np, plane, num_vertices: int, n: int) -> dict:
@@ -766,97 +873,100 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
         "shards_s", "scores_s", "top_fraction_s", "client_state_s",
         "eval_state_s")}
     topf_args: list = []
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t_main = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        T = fed.FederatedGNNTrainer
-        for owner, name, key, args in (
-                (fed, "make_client_shards", "shards_s", None),
-                (fed, "score_remote_nodes", "scores_s", None),
-                (fed, "top_fraction", "top_fraction_s", topf_args),
-                (T, "_build_client_state", "client_state_s", None),
-                (T, "_build_eval_state", "eval_state_s", None)):
-            stack.enter_context(timed(owner, name, setup[key], args))
-        model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
-                         generator=torch.Generator().manual_seed(0),
-                         device=DEV)
-        trainer = T(g, 4, opg_int8(), part=part, model=model,
-                    device=DEV)
+    # the launches of the window, and the aggregation's by where and shape
+    agg_tally: dict = {}
+    with agg_launches_by_shape(agg_tally):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-    construct_s = time.perf_counter() - t_main
-    t0 = time.perf_counter()
-    trainer.pretrain_round()
-    torch.cuda.synchronize()
-    pretrain_s = time.perf_counter() - t0
-
-    sample_ms, copy_ms, compute_ms, step_ms = [], [], [], []
-    copied: list = []
-    inner_copy = fed.blocks_to_arrays
-
-    def copy_blocks(mb, device):
-        t = time.perf_counter()
-        out = inner_copy(mb, device)
-        torch.cuda.synchronize()
-        copy_ms.append((time.perf_counter() - t) * 1e3)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        copied.append(ev)
-        return out
-
-    results, losses, fill_s, push_s, iters = [], {}, [], [], {}
-    fed.blocks_to_arrays = copy_blocks
-    try:
-        t_loop = time.perf_counter()
-        for ci in range(4):
-            t0 = time.perf_counter()
-            trainer._fill_cache(ci)
+        t_main = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            T = fed.FederatedGNNTrainer
+            for owner, name, key, args in (
+                    (fed, "make_client_shards", "shards_s", None),
+                    (fed, "score_remote_nodes", "scores_s", None),
+                    (fed, "top_fraction", "top_fraction_s", topf_args),
+                    (T, "_build_client_state", "client_state_s", None),
+                    (T, "_build_eval_state", "eval_state_s", None)):
+                stack.enter_context(timed(owner, name, setup[key], args))
+            model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                             generator=torch.Generator().manual_seed(0),
+                             device=DEV)
+            trainer = T(g, 4, opg_int8(), part=part, model=model,
+                        device=DEV)
             torch.cuda.synchronize()
-            fill_s.append(time.perf_counter() - t0)
-            it = iters[ci] = trainer.samplers[ci].epoch()
-            params = copy.deepcopy(trainer.model)
-            opt_state = trainer.opt.init(params.leaves())
-            ls = []
-            for _ in range(TRAIN_STEPS):
-                t_step = time.perf_counter()
-                mb = next(it)
-                sample_ms.append((time.perf_counter() - t_step) * 1e3)
-                params, opt_state, out = trainer.train_minibatches(
-                    ci, params, opt_state, [mb])
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                end.synchronize()
-                compute_ms.append(copied[-1].elapsed_time(end))
-                step_ms.append((time.perf_counter() - t_step) * 1e3)
-                ls += out
-            t0 = time.perf_counter()
-            plan, _, _ = trainer._compute_push(ci, params)
-            torch.cuda.synchronize()
-            push_s.append(time.perf_counter() - t0)
-            losses[ci] = [float(x) for x in ls]
-            results.append(fed.ClientRoundResult(
-                client_id=ci, params=params, phases=fed.PhaseTimes(),
-                rpc_sizes=[], push_plan=plan,
-                weight=float(len(trainer.shards[ci].train_vertices())),
-                loss=losses[ci][-1], client_time=0.0))
-        loop_s = time.perf_counter() - t_loop
-    finally:
-        fed.blocks_to_arrays = inner_copy
-    t0 = time.perf_counter()
-    for res in results:
-        if res.push_plan is not None:
-            trainer.ex_clients[res.client_id].apply_push(res.push_plan)
-    torch.cuda.synchronize()
-    apply_s = time.perf_counter() - t0
-    eval_s: list = []
-    with timed(trainer, "evaluate", eval_s):
+        construct_s = time.perf_counter() - t_main
         t0 = time.perf_counter()
-        acc = trainer.aggregate(results)
+        trainer.pretrain_round()
         torch.cuda.synchronize()
-        aggregate_s = time.perf_counter() - t0
-    main_s = time.perf_counter() - t_main
-    counts = ops.launch_counts()
+        pretrain_s = time.perf_counter() - t0
+
+        sample_ms, copy_ms, compute_ms, step_ms = [], [], [], []
+        copied: list = []
+        inner_copy = fed.blocks_to_arrays
+
+        def copy_blocks(mb, device):
+            t = time.perf_counter()
+            out = inner_copy(mb, device)
+            torch.cuda.synchronize()
+            copy_ms.append((time.perf_counter() - t) * 1e3)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            copied.append(ev)
+            return out
+
+        results, losses, fill_s, push_s, iters = [], {}, [], [], {}
+        fed.blocks_to_arrays = copy_blocks
+        try:
+            t_loop = time.perf_counter()
+            for ci in range(4):
+                t0 = time.perf_counter()
+                trainer._fill_cache(ci)
+                torch.cuda.synchronize()
+                fill_s.append(time.perf_counter() - t0)
+                it = iters[ci] = trainer.samplers[ci].epoch()
+                params = copy.deepcopy(trainer.model)
+                opt_state = trainer.opt.init(params.leaves())
+                ls = []
+                for _ in range(TRAIN_STEPS):
+                    t_step = time.perf_counter()
+                    mb = next(it)
+                    sample_ms.append((time.perf_counter() - t_step) * 1e3)
+                    params, opt_state, out = trainer.train_minibatches(
+                        ci, params, opt_state, [mb])
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    end.synchronize()
+                    compute_ms.append(copied[-1].elapsed_time(end))
+                    step_ms.append((time.perf_counter() - t_step) * 1e3)
+                    ls += out
+                t0 = time.perf_counter()
+                plan, _, _ = trainer._compute_push(ci, params)
+                torch.cuda.synchronize()
+                push_s.append(time.perf_counter() - t0)
+                losses[ci] = [float(x) for x in ls]
+                results.append(fed.ClientRoundResult(
+                    client_id=ci, params=params, phases=fed.PhaseTimes(),
+                    rpc_sizes=[], push_plan=plan,
+                    weight=float(len(trainer.shards[ci].train_vertices())),
+                    loss=losses[ci][-1], client_time=0.0))
+            loop_s = time.perf_counter() - t_loop
+        finally:
+            fed.blocks_to_arrays = inner_copy
+        t0 = time.perf_counter()
+        for res in results:
+            if res.push_plan is not None:
+                trainer.ex_clients[res.client_id].apply_push(res.push_plan)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        eval_s: list = []
+        with timed(trainer, "evaluate", eval_s):
+            t0 = time.perf_counter()
+            acc = trainer.aggregate(results)
+            torch.cuda.synchronize()
+            aggregate_s = time.perf_counter() - t0
+        main_s = time.perf_counter() - t_main
+        counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     for ci, ls in losses.items():
@@ -867,6 +977,9 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
     for name in TRAIN_KERNELS:
         check(counts[name] > 0,
               f"kernel {name} never launched on the training slice")
+    check(sum(agg_tally.values()) == counts["gnn_aggregate"],
+          f"gnn_aggregate launched {counts['gnn_aggregate']} times, "
+          f"{sum(agg_tally.values())} of them through the model's aggregation")
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
 
     # device busy share over PROFILED_STEPS steps of client 0, batches
@@ -922,15 +1035,57 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
         "loss_first8": {ci: float(np.mean(v[:8])) for ci, v in losses.items()},
         "loss_last8": {ci: float(np.mean(v[-8:])) for ci, v in losses.items()},
         "peak_mem_gb": peak_gb,
+        "gnn_aggregate_launches": [
+            {"where": k[0], "shape": k[1:], "launches": v}
+            for k, v in sorted(agg_tally.items())],
         "profiled_steps": window,
         "trained_serving_exits_at_0.5": plane.stats()["exits_by_depth"],
     }
     return out, counts, trainer, topf_args[0][0]
 
 
-def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
+def sync_free_check(torch, trainer, batch) -> dict:
+    """One training step's forward and backward over ``batch`` (its blocks
+    carrying their host-built CSRs) and ``full_propagate`` over both of
+    client 0's edge sets, under ``set_sync_debug_mode("error")``: no
+    aggregation call on the path waits on the card.  Returns the
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import loss_fn
+
+    model = trainer.model
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = loss_fn(model, batch, trainer.feats[0], trainer._caches[0],
+                       trainer.labels[0])
+        torch.autograd.grad(loss, model.leaves())
+        model.full_propagate(trainer.shard_arrays[0], trainer._caches[0])
+        model.full_propagate(trainer.shard_arrays[0], None)
+    except RuntimeError as e:
+        raise SmokeFailure(f"an aggregation call waited on the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    L = model.num_layers
+    check(counts.get("gnn_aggregate") == 3 * L
+          and counts.get("segment_mean_bwd") == L - 1,
+          f"sync-free check: launches {counts}")
+    print(f"no host sync in one training step's aggregations and two "
+          f"full_propagate calls: launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
+def train_kernel_phase(torch, np, trainer, scores0, agg_launches: list
+                       ) -> tuple[list[dict], dict]:
     """The aggregation's backward and the top-k selection kernel against
-    their plain versions at the training slice's shapes."""
+    their plain versions at the training slice's shapes; the aggregation
+    forward at each minibatch block's shape (row 5'' is layer 2's),
+    returned apart, each with the launches the training slice made at
+    that shape (``agg_launches``, from the launch counter); and the
+    sync-free check of the path's aggregation calls."""
     from repro_torch.core.pruning import top_fraction
     from repro_torch.kernels import gnn_aggregate as agg_mod
     from repro_torch.kernels import ops, ref
@@ -1002,12 +1157,66 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
             + kept * 4 + n_src * hidden * 4,
         }
 
-    # layer 2 of a full-width minibatch (the train step's shape)
+    # the blocks of a full-width minibatch (the train step's shapes)
     mb = next(iter(trainer.samplers[0].epoch()))
-    blk = blocks_to_arrays(mb, dev)["blocks"][1]
+    batch = blocks_to_arrays(mb, dev)
+    sync_counts = sync_free_check(torch, trainer, batch)
+    launches_at = {(a["where"], *a["shape"]): a["launches"]
+                   for a in agg_launches}
+
+    def block_case(j: int, f: int) -> tuple[dict, tuple]:
+        """The forward at block ``j``: p_src x f -> p_dst, over the CSR
+        the block carries (its padded edge lists from the sampler)."""
+        b = mb.blocks[j]
+        bcsr = batch["blocks"][j]["csr"]
+        edges = tuple(torch.from_numpy(np.asarray(a).astype(t)).to(dev)
+                      for a, t in ((b.edge_src, np.int32),
+                                   (b.edge_dst, np.int32),
+                                   (b.edge_mask, bool)))
+        h = torch.randn((b.p_src, f), generator=gen).to(dev)
+        err, card_err = agg_check(torch, f"training block {j + 1}", h,
+                                  edges, b.p_dst, bcsr)
+        kept = int(bcsr.indices.shape[0])
+        gathered = h[bcsr.indices.long()]
+        dst_kept = edges[1][edges[2]].long()
+        lib_out = torch.zeros((b.p_dst, f), device=dev)
+        launches = launches_at.get(("block", b.p_src, f, b.p_dst), 0)
+        check(launches > 0, f"no gnn_aggregate launch at training block "
+                            f"{j + 1}'s shape {(b.p_src, f, b.p_dst)}")
+        case = with_bound({
+            "shape": (b.p_src, f, b.p_dst, len(b.edge_src)),
+            "err": err, "max_abs_err_vs_card_plain": card_err,
+            "kept_edges": kept, "kept_degree": kept_degree(np, bcsr.indptr),
+            # the training slice's launches at this shape (counted)
+            "launches": launches,
+            "ms": time_ms(torch, lambda: ops.gnn_aggregate(
+                h, *edges, b.p_dst, bcsr)),
+            "plain_ms": time_ms(torch, lambda: ref.segment_mean(
+                h, *edges, b.p_dst)),
+            "library_ms": time_ms(torch, lambda: lib_out.index_reduce_(
+                0, dst_kept, gathered, "mean", include_self=False)),
+            "kernel_ms": time_ms(torch, lambda: agg_mod.segment_mean_csr(
+                h, bcsr.indptr, bcsr.indices, bcsr.order)),
+            "edge_list_ms": time_ms(torch, lambda: ops.gnn_aggregate(
+                h, *edges, b.p_dst)),
+            "device_ms": device_ms(torch, lambda: ops.gnn_aggregate(
+                h, *edges, b.p_dst, bcsr), "segment_mean_csr_kernel"),
+            "nbytes": agg_bytes(h, b.p_dst, kept)})
+        case["bound_edge_list_ms"] = bound_ms(agg_edge_list_bytes(
+            h, len(b.edge_src), kept, b.p_dst))
+        print(f"kernel gnn_aggregate at training block {j + 1}: "
+              + json.dumps(case), flush=True)
+        return case, edges
+
+    L = len(mb.blocks)
+    feat = trainer.feats[0].shape[1]
+    blocks = [block_case(j, feat if j == 0 else hidden) for j in range(L)]
+    # row 5'': layer 2, the block the backward below also runs at
+    forward_block, edges = blocks[1]
     b = mb.blocks[1]
-    step = bwd_case(b.p_src, blk["edge_src"], blk["edge_dst"],
-                    blk["edge_mask"], b.p_dst)
+    other_blocks = {f"training_block_{j + 1}": blocks[j][0]
+                    for j in range(L) if j != 1}
+    step = bwd_case(b.p_src, *edges, b.p_dst)
     # layer 2 of full_propagate on client 0 (local rows + cached remotes)
     arr = trainer.shard_arrays[0]
     n_src = arr["num_local"] + trainer._caches[0][0].shape[0]
@@ -1085,7 +1294,8 @@ def train_kernel_phase(torch, np, trainer, scores0) -> list[dict]:
     print("kernel topk_mask at 40M: " + json.dumps(report[-1]["papers_40m"]),
           flush=True)
     torch.cuda.synchronize()
-    return report
+    return report, {"training_block": forward_block, **other_blocks,
+                    "sync_free_launches": sync_counts}
 
 
 def train_reference_phase(torch, np) -> dict:
@@ -1142,8 +1352,9 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
     n_dst = arr["num_local"]
     n_src = n_dst + trainer._caches[0][0].shape[0]
     hidden = trainer.hidden
-    e_src, e_dst = arr["edge_src"], arr["edge_dst"]
-    mask = torch.ones_like(arr["src_is_remote"])
+    every = arr["every"]
+    e_src, e_dst, mask = every["edge_src"], every["edge_dst"], \
+        every["edge_mask"]
     gen = torch.Generator(device=DEV).manual_seed(99)
     tr = make_transport(3, hidden, device=DEV)
     gids = np.arange(n_src)
@@ -1160,10 +1371,13 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
     check(counts["dequant_aggregate"] == 1 and counts["gather_quantize"] == 1,
           f"pull-then-aggregate launches {counts}")
 
-    two_step, _ = ops.gnn_aggregate(ops.dequantize_int8(values, scales),
-                                    e_src, e_dst, mask, n_dst)
-    check(torch.equal(mean, two_step), "dequant_aggregate is not bit-equal "
-          "to gnn_aggregate(dequantize_int8) at row 5b' shape")
+    decoded = ops.dequantize_int8(values, scales)
+    for csr in (every["csr"], None):
+        two_step, _ = ops.gnn_aggregate(decoded, e_src, e_dst, mask, n_dst,
+                                        csr)
+        check(torch.equal(mean, two_step), "dequant_aggregate is not "
+              "bit-equal to gnn_aggregate(dequantize_int8) at row 5b' "
+              f"shape ({'host' if csr is not None else 'glue'} CSR)")
     args = (values, scales, e_src, e_dst, mask)
     want = ref.dequant_aggregate(*[a.cpu() for a in args], n_dst)
     err = max_err(mean.cpu(), want)
@@ -1542,6 +1756,7 @@ def main() -> int:
     from repro_torch.graphs import (bfs_partition, make_client_shards,
                                     make_graph)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import gnn_aggregate as agg_mod
 
     t_all = time.perf_counter()
     card = card_line()
@@ -1558,13 +1773,24 @@ def main() -> int:
 
     report = kernel_phase(torch, np, shards, g.num_vertices)
     reference_phase(torch, np)
-    res = slice_phase(torch, np, g, part, shards)
-    print("slice: " + json.dumps({k: v for k, v in res.items()
-                                  if k != "launches"}), flush=True)
-    train, train_counts, trainer, scores0 = train_slice_phase(
-        torch, np, g, part)
-    print("training slice: " + json.dumps(train), flush=True)
-    report += train_kernel_phase(torch, np, trainer, scores0)
+    # the serving and training paths aggregate over the CSRs built on the
+    # host with their blocks and shards: the card's glue never runs there
+    glue: list = []
+    with timed(agg_mod, "csr_from_edges", glue), \
+            timed(agg_mod, "transpose_csr", glue):
+        res = slice_phase(torch, np, g, part, shards)
+        print("slice: " + json.dumps({k: v for k, v in res.items()
+                                      if k != "launches"}), flush=True)
+        train, train_counts, trainer, scores0 = train_slice_phase(
+            torch, np, g, part)
+        print("training slice: " + json.dumps(train), flush=True)
+    check(not glue, f"the CSR glue ran {len(glue)} times on the serving and "
+                    "training paths")
+    print("serving and training paths: no CSR glue on the card", flush=True)
+    rows, extra = train_kernel_phase(torch, np, trainer, scores0,
+                                     train["gnn_aggregate_launches"])
+    report += rows
+    next(r for r in report if r["name"] == "gnn_aggregate").update(extra)
     pull_counts, rows = pull_aggregate_phase(torch, np, trainer)
     report += rows
     del trainer

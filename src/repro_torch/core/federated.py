@@ -45,7 +45,7 @@ from repro_torch.graphs.partition import (ClientShard, bfs_partition,
                                           make_client_shards)
 from repro_torch.graphs.sampler import MiniBatch, NeighborSampler
 from repro_torch.models.gnn import (GNN, blocks_to_arrays, init_gnn, loss_fn,
-                                    shard_to_arrays)
+                                    propagate_arrays, shard_to_arrays)
 from repro_torch.optim import Optimizer, adam
 
 from .cost_model import NetworkModel
@@ -240,20 +240,12 @@ def eval_arrays_for(g, sel: np.ndarray, device) -> dict:
     pos = (np.arange(total, dtype=np.int64)
            - np.repeat(offsets[:-1], counts) + np.repeat(starts, counts))
     e_src = np.asarray(g.indices[pos], dtype=np.int64)
-    e_dst = np.repeat(np.arange(len(sel), dtype=np.int64), counts)
     loc = np.minimum(np.searchsorted(sel, e_src), len(sel) - 1)
     keep = sel[loc] == e_src
-
-    def t(a):
-        return torch.from_numpy(a).to(device)
-
-    return {
-        "edge_src": t(loc[keep].astype(np.int32)),
-        "edge_dst": t(e_dst[keep].astype(np.int32)),
-        "src_is_remote": t(np.zeros(int(keep.sum()), bool)),
-        "num_local": len(sel),
-        "features": t(np.asarray(g.features[sel], np.float32)),
-    }
+    # a row's kept edges start after the kept edges of the rows before it
+    kept_indptr = np.searchsorted(np.flatnonzero(keep), offsets)
+    return propagate_arrays(kept_indptr, loc[keep], len(sel), len(sel),
+                            g.features[sel], device)
 
 
 def _refuse_unported(st: Strategy, given: dict) -> None:

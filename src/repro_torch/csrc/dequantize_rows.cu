@@ -13,15 +13,18 @@
 // the (n, h) block is one flat run, and each thread moves 4 values, one
 // 32-bit load in and one 16-byte store out, with the row's scale from a
 // cached load; at h = 32 a warp covers 4 rows.  It needs h % 4 == 0, q
-// 4-byte and out 16-byte aligned (and fewer than 2^32 quads); other
-// shapes (h = 3, a view that starts at an odd row) take the warp-per-row
-// kernel below, which writes the same values.  With rows: one warp per
-// row with lanes across the columns, so stores of a destination row are
-// coalesced even though the rows themselves are scattered; the per-row
-// scale is one broadcast load.  Set mode with unique rows is a plain
-// store and bit-exact.  Add mode uses atomicAdd so duplicate rows are
-// safe; their order is not fixed, so duplicates are held to a tolerance
-// and unique rows stay exact (one correctly rounded add each).
+// 4-byte and out 16-byte aligned (and fewer than 2^32 quads), which a
+// view that starts some rows into a block keeps where h % 4 == 0; other
+// shapes (h = 3, q at an odd byte) take the warp-per-row kernel below,
+// which writes the same values.  With rows: one warp per row with lanes
+// across the columns, so stores of a destination row are coalesced even
+// though the rows themselves are scattered; the per-row scale is one
+// broadcast load.  Set mode (rows unique) is a plain store.  Add mode
+// takes the row ids sorted stably by the wrapper, with each sorted
+// position's value row in `order`: one warp per run of equal ids adds the
+// run's rows in ascending value-row order onto the old table row, the
+// correctly rounded adds of a sequential index_add_, with no atomics.
+// Both modes are bit-exact and the same launch after launch.
 
 #include "common.cuh"
 
@@ -50,8 +53,7 @@ __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ scale,
                                        float* __restrict__ out,
                                        const int32_t* __restrict__ rows,
-                                       int64_t n, int h, int64_t R,
-                                       int accumulate) {
+                                       int64_t n, int h, int64_t R) {
   const int64_t i = repro::warp_row();
   if (i >= n) return;
   const int64_t r = rows == nullptr ? i : static_cast<int64_t>(rows[i]);
@@ -60,12 +62,34 @@ __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
   const float s = scale[i];
   const int8_t* qi = q + i * h;
   float* o = out + r * h;
+  for (int j = lane; j < h; j += repro::kWarpSize)
+    o[j] = __fmul_rn(static_cast<float>(qi[j]), s);
+}
+
+// Add mode: rows sorted stably (duplicates together, in ascending value
+// row), order[p] the value row of sorted position p.  The warp of a run's
+// first position adds every value row of the run, in order, onto the old
+// table row.
+__global__ void dequantize_add_sorted_kernel(const int8_t* __restrict__ q,
+                                             const float* __restrict__ scale,
+                                             float* __restrict__ out,
+                                             const int32_t* __restrict__ rows,
+                                             const int64_t* __restrict__ order,
+                                             int64_t n, int h, int64_t R) {
+  const int64_t p = repro::warp_row();
+  if (p >= n) return;
+  const int64_t r = rows[p];
+  if ((p > 0 && rows[p - 1] == r) || r < 0 || r >= R) return;
+  const int lane = repro::lane_id();
+  float* o = out + r * h;
   for (int j = lane; j < h; j += repro::kWarpSize) {
-    const float v = __fmul_rn(static_cast<float>(qi[j]), s);
-    if (accumulate)
-      atomicAdd(o + j, v);
-    else
-      o[j] = v;
+    float acc = o[j];
+    for (int64_t k = p; k < n && rows[k] == r; ++k) {
+      const int64_t i = order[k];
+      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(q[i * h + j]),
+                                     scale[i]));
+    }
+    o[j] = acc;
   }
 }
 
@@ -74,12 +98,14 @@ __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
 // dequantize_rows's arguments, in the order of kernels/_build.py's
 // SIGNATURES, which packs them.  q: (n, h) int8; scale: (n,) fp32; out:
 // (R, h) fp32 table (R == n when rows is null); rows: n int32 row ids or
-// null.  n must be > 0.
+// null (sorted stably with accumulate); order: with accumulate, the n
+// int64 value rows of the sorted positions, else null.  n must be > 0.
 struct DequantizeRowsArgs {
   const void* q;
   const void* scale;
   void* out;
   const void* rows;
+  const void* order;
   int64_t n;
   int h;
   int64_t R;
@@ -103,10 +129,20 @@ REPRO_EXPORT int dequantize_rows(const DequantizeRowsArgs* args) {
         static_cast<unsigned int>(a.h / 4));
     return static_cast<int>(cudaGetLastError());
   }
+  if (a.accumulate) {
+    if (a.rows == nullptr || a.order == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    dequantize_add_sorted_kernel<<<repro::row_blocks(a.n),
+                                   repro::kThreadsPerBlock, 0, st>>>(
+        static_cast<const int8_t*>(a.q), static_cast<const float*>(a.scale),
+        static_cast<float*>(a.out), static_cast<const int32_t*>(a.rows),
+        static_cast<const int64_t*>(a.order), a.n, a.h, a.R);
+    return static_cast<int>(cudaGetLastError());
+  }
   dequantize_rows_kernel<<<repro::row_blocks(a.n), repro::kThreadsPerBlock, 0,
                            st>>>(
       static_cast<const int8_t*>(a.q), static_cast<const float*>(a.scale),
       static_cast<float*>(a.out), static_cast<const int32_t*>(a.rows), a.n,
-      a.h, a.R, a.accumulate);
+      a.h, a.R);
   return static_cast<int>(cudaGetLastError());
 }

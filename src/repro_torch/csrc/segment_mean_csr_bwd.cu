@@ -12,8 +12,10 @@
 //                 edge order, of grad_mean[dst(e)] / max(cnt[dst(e)], 1)
 //
 // The transposed CSR (t_indptr over the sources, t_dst the destination of
-// each kept edge, grouped by source in ascending edge order) is built by
-// the forward's glue (repro_torch/kernels/gnn_aggregate.py transpose_csr).
+// each kept edge, grouped by source in ascending edge order) is built on
+// the host with the training block (repro_torch/kernels/gnn_aggregate.py
+// csr_arrays), or for a direct caller by the forward's glue
+// (transpose_csr); both give the same bytes.
 // Each term is the quotient JAX's transpose of `summed / max(cnt, 1)`
 // forms (__fdiv_rn, not a multiply by a reciprocal), and the sum starts
 // at +0.0 and adds the terms one by one in edge order with __fadd_rn:

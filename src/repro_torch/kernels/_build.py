@@ -47,8 +47,8 @@ _F32 = ctypes.c_float
 #: (pointers and the stream as c_void_p, 64 bits wide).
 SIGNATURES: dict[str, list] = {
     "quantize_rows": [_P, _P, _I64, _I32, _I64, _P, _P, _P],
-    "dequantize_rows": [_P, _P, _P, _P, _I64, _I32, _I64, _I32, _P],
-    "segment_mean_csr": [_P, _P, _P, _I64, _I32, _P, _P, _P],
+    "dequantize_rows": [_P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _P],
+    "segment_mean_csr": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P],
     "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P],
     "count_ge": [_P, _I64, _P, _P, _P],
     "topk_select": [_P, _I64, _I64, _P, _P, _I32, _P],

@@ -91,14 +91,18 @@ def dequant_scatter_(table: torch.Tensor, rows, values: torch.Tensor,
 
 def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
                   edge_dst: torch.Tensor, edge_mask: torch.Tensor,
-                  n_dst: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  n_dst: int, csr: _agg.Csr | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked neighbour mean over a destination-grouped edge list →
     (mean (n_dst, F), cnt (n_dst,) fp32), differentiable in ``src``
     through :class:`GnnAggregate` (the kernels on the card, the plain
-    versions on the CPU)."""
+    versions on the CPU).  ``csr``, the :class:`Csr` of the same kept
+    edges built on the host, spares the card the glue that builds it."""
     if _on_cuda(src):
-        return _agg.gnn_aggregate(src, edge_src, edge_dst, edge_mask, n_dst)
-    return _agg.GnnAggregate.apply(src, edge_src, edge_dst, edge_mask, n_dst)
+        return _agg.gnn_aggregate(src, edge_src, edge_dst, edge_mask, n_dst,
+                                  csr)
+    return _agg.GnnAggregate.apply(src, edge_src, edge_dst, edge_mask, n_dst,
+                                   csr)
 
 
 def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,

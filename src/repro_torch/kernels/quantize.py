@@ -16,24 +16,30 @@ from ._build import launch
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, name: str,
-               ndim: int) -> None:
+               ndim: int, *, rows_only: bool = False) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
-    ``ndim`` dimensions — the only layout the kernels take."""
+    ``ndim`` dimensions — the only layout the kernels take — or, with
+    ``rows_only``, a 2-dim one whose rows are contiguous and at least a
+    row apart (a column slice of a wider table)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if rows_only and ndim == 2:
+        if t.numel() and (t.stride(1) != 1 or t.stride(0) < t.shape[1]):
+            raise ValueError(f"{name} must have contiguous rows")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 def encode_rows(counter: str, x: torch.Tensor, rows: torch.Tensor | None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """int8-encode ``x`` (rows 0..n-1) or ``x[rows]``; shared by the codec
-    and the fused pull-response gather."""
-    check_cuda(x, torch.float32, "x", 2)
+    and the fused pull-response gather.  ``x`` may be a view whose rows
+    are ``x.stride(0) >= h`` floats apart (its columns contiguous)."""
+    check_cuda(x, torch.float32, "x", 2, rows_only=True)
     n = x.shape[0] if rows is None else rows.shape[0]
     h = x.shape[1]
     if rows is not None:
@@ -42,7 +48,7 @@ def encode_rows(counter: str, x: torch.Tensor, rows: torch.Tensor | None
     s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0 or h == 0:
         return q, s.zero_()
-    launch(counter, "quantize_rows", x, rows, n, h, h, q, s)
+    launch(counter, "quantize_rows", x, rows, n, h, x.stride(0), q, s)
     return q, s
 
 
@@ -51,7 +57,9 @@ def decode_rows(counter: str, values: torch.Tensor, scales: torch.Tensor,
                 accumulate: bool) -> torch.Tensor:
     """Decode int8 rows into ``out`` (rows 0..n-1) or ``out[rows]`` (set
     or add, row ids outside [0, R) dropped); shared by the codec and the
-    fused push-apply scatter."""
+    fused push-apply scatter.  The add sorts the row ids stably first, so
+    the kernel adds duplicates in index order, as ``index_add_`` does on
+    the CPU."""
     check_cuda(values, torch.int8, "values", 2)
     check_cuda(scales, torch.float32, "scales", 2)
     check_cuda(out, torch.float32, "out", 2)
@@ -68,8 +76,11 @@ def decode_rows(counter: str, values: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"out has {out.shape[0]} rows for {n} values")
     if n == 0 or h == 0:
         return out
-    launch(counter, "dequantize_rows", values, scales, out, rows, n, h,
-           out.shape[0], int(accumulate))
+    order = None
+    if accumulate and rows is not None:
+        rows, order = torch.sort(rows, stable=True)
+    launch(counter, "dequantize_rows", values, scales, out, rows, order, n,
+           h, out.shape[0], int(accumulate))
     return out
 
 

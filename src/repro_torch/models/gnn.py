@@ -13,7 +13,9 @@ as they stay XLA code in the JAX package.
 
 Blocks are dicts of tensors (:func:`blocks_to_arrays`,
 :func:`shard_to_arrays`) with the JAX package's keys and layouts, so the
-two packages can be held against each other on the same inputs.
+two packages can be held against each other on the same inputs; each
+also carries the CSR of its kept edges, built once on the host, and a
+block on the card carries that CSR in place of its padded edge lists.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.gnn_aggregate import csr_arrays, csr_of
 
 CONVS = ("graphconv", "sageconv")
 
@@ -42,11 +45,21 @@ class GNNLayer(nn.Module):
         self.w_self = None if w_self is None else nn.Parameter(w_self)
 
 
+def _aggregate(h_src: torch.Tensor, edges: dict, n_dst: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The neighbour mean over an edge set (a block, or one of a shard's
+    two): over the CSR of its kept edges built on the host where the
+    card aggregates, over its padded edge lists where the CPU does (a
+    block on the card carries no edge lists)."""
+    return ops.gnn_aggregate(h_src, edges.get("edge_src"),
+                             edges.get("edge_dst"), edges.get("edge_mask"),
+                             n_dst, edges["csr"])
+
+
 def _layer_forward(layer: GNNLayer, conv: str, h_src: torch.Tensor,
                    blk: dict, *, last: bool) -> torch.Tensor:
     n_dst = blk["dst_remote_mask"].shape[0]   # padded dst size
-    agg, cnt = ops.gnn_aggregate(h_src, blk["edge_src"], blk["edge_dst"],
-                                 blk["edge_mask"], n_dst)
+    agg, cnt = _aggregate(h_src, blk, n_dst)
     return _combine(layer, conv, agg, cnt, h_src[:n_dst], last=last)
 
 
@@ -156,24 +169,20 @@ class GNN(nn.Module):
         is private."""
         L = self.num_layers
         num_local = shard_arrays["num_local"]
-        e_src = shard_arrays["edge_src"]
-        e_dst = shard_arrays["edge_dst"]
-        remote_e = shard_arrays["src_is_remote"]
         h_local = shard_arrays["features"]
         outs = []
         for l in range(1, L + 1):
             if l == 1 or caches is None:
-                mask = ~remote_e
+                # remote sources masked: their ids point at a zero row
                 pad = torch.zeros((1, h_local.shape[1]), dtype=h_local.dtype,
                                   device=h_local.device)
                 src_tbl = torch.cat([h_local, pad], dim=0)
-                src_idx = torch.where(remote_e, num_local, e_src)
+                edges = shard_arrays["local"]
             else:
-                mask = torch.ones_like(remote_e)
+                # remote ids already offset past num_local
                 src_tbl = torch.cat([h_local, caches[l - 2]], dim=0)
-                src_idx = e_src  # remote ids already offset past num_local
-            agg, cnt = ops.gnn_aggregate(src_tbl, src_idx, e_dst, mask,
-                                         num_local)
+                edges = shard_arrays["every"]
+            agg, cnt = _aggregate(src_tbl, edges, num_local)
             h_local = _combine(self.layers[l - 1], self.conv, agg, cnt,
                                h_local, last=(l == L))
             outs.append(h_local)
@@ -236,47 +245,166 @@ def from_jax_leaves(leaves: Sequence[np.ndarray], conv: str,
     return GNN(conv, layers)
 
 
-def block_arrays(blocks, input_ids, device) -> dict:
-    """Padded blocks and the input node ids as tensors on ``device``."""
-    def t(a, dtype):
-        return torch.from_numpy(np.asarray(a).astype(dtype)).to(device)
+#: numpy dtype → torch dtype of the arrays :func:`to_device` moves
+_TORCH_DTYPES = {np.dtype(d): t for d, t in (
+    (bool, torch.bool), (np.int8, torch.int8), (np.uint8, torch.uint8),
+    (np.int32, torch.int32), (np.int64, torch.int64),
+    (np.float32, torch.float32))}
 
-    return {
-        "blocks": [
-            {
-                "edge_src": t(b.edge_src, np.int32),
-                "edge_dst": t(b.edge_dst, np.int32),
-                "edge_mask": t(b.edge_mask, bool),
-                "dst_remote_mask": t(b.dst_remote_mask, bool),
-                "dst_remote_slot": t(b.dst_remote_slot, np.int64),
-            }
-            for b in blocks
-        ],
-        "input_ids": t(input_ids, np.int64),
-    }
+
+def to_device(tree, device):
+    """``tree`` (dicts, lists and named tuples of numpy arrays and other
+    leaves) with every array on ``device``, in one transfer.  The arrays
+    are packed at 16-byte offsets into one host buffer (page-locked for
+    the card, so the copy does not wait on the host), copied once, and
+    split there into typed views; an array (or a container) that appears
+    twice is copied once and comes back as one object.  Other leaves pass
+    through."""
+    arrays: dict[int, np.ndarray] = {}
+
+    def collect(x):
+        if isinstance(x, np.ndarray):
+            arrays.setdefault(id(x), np.ascontiguousarray(x))
+        elif isinstance(x, dict):
+            for v in x.values():
+                collect(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                collect(v)
+
+    collect(tree)
+    # each array, then the padding that puts the next one at 16 bytes
+    sizes = []
+    for a in arrays.values():
+        sizes += [a.nbytes, -a.nbytes % 16]
+    dev = torch.device(device)
+    host = torch.empty(sum(sizes), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    at = 0
+    for a, pad in zip(arrays.values(), sizes[1::2]):
+        buf[at: at + a.nbytes] = a.reshape(-1).view(np.uint8)
+        at += a.nbytes + pad
+    pieces = host.to(dev, non_blocking=True).split(sizes)[::2]
+    views = {}
+    for (key, a), piece in zip(arrays.items(), pieces):
+        t = piece.view(_TORCH_DTYPES[a.dtype])
+        views[key] = t if a.ndim == 1 else t.view(a.shape)
+
+    done: dict[int, object] = {}
+
+    def rebuild(x):
+        if isinstance(x, np.ndarray):
+            return views[id(x)]
+        if id(x) in done:
+            return done[id(x)]
+        if isinstance(x, dict):
+            out = {k: rebuild(v) for k, v in x.items()}
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            out = type(x)(*[rebuild(v) for v in x])
+        elif isinstance(x, (list, tuple)):
+            out = type(x)(rebuild(v) for v in x)
+        else:
+            return x
+        done[id(x)] = out
+        return out
+
+    return rebuild(tree)
+
+
+def _host_blocks(blocks, input_ids, device, *, transposed: bool) -> dict:
+    """Padded blocks and the input node ids as numpy arrays, each block
+    with the CSR of its kept edges (and, with ``transposed``, the
+    transposed CSR for the backward of every block past the first, whose
+    source is the feature table).  The padded edge lists, which only the
+    plain versions read, are kept for the CPU alone: the card's kernels
+    read the CSRs."""
+    edge_lists = torch.device(device).type != "cuda"
+
+    def a(x, dtype):
+        return np.asarray(x).astype(dtype, copy=False)
+
+    out = []
+    for j, b in enumerate(blocks):
+        blk = {
+            "dst_remote_mask": a(b.dst_remote_mask, bool),
+            "dst_remote_slot": a(b.dst_remote_slot, np.int64),
+            "csr": csr_arrays(b.p_src, b.edge_src, b.edge_dst, b.edge_mask,
+                              b.p_dst, transposed=transposed and j > 0),
+        }
+        if edge_lists:
+            blk.update(edge_src=a(b.edge_src, np.int32),
+                       edge_dst=a(b.edge_dst, np.int32),
+                       edge_mask=a(b.edge_mask, bool))
+        out.append(blk)
+    return {"blocks": out, "input_ids": a(input_ids, np.int64)}
+
+
+def block_arrays(blocks, input_ids, device) -> dict:
+    """Padded blocks and the input node ids as tensors on ``device``, in
+    one copy, each block with the CSR of its kept edges."""
+    return to_device(_host_blocks(blocks, input_ids, device,
+                                  transposed=False), device)
 
 
 def blocks_to_arrays(mb, device) -> dict:
-    """A sampled :class:`MiniBatch` (blocks, input ids, seeds and their
-    mask) as tensors on ``device``."""
-    out = block_arrays(mb.blocks, mb.input_ids, device)
-    out["seeds"] = torch.from_numpy(mb.seeds.astype(np.int64)).to(device)
-    out["seed_mask"] = torch.from_numpy(mb.seed_mask).to(device)
+    """A sampled :class:`MiniBatch` (blocks with their CSRs and transposed
+    CSRs, input ids, seeds and their mask) as tensors on ``device``, in
+    one copy."""
+    host = _host_blocks(mb.blocks, mb.input_ids, device, transposed=True)
+    host["seeds"] = np.asarray(mb.seeds, np.int64)
+    host["seed_mask"] = np.asarray(mb.seed_mask, bool)
+    return to_device(host, device)
+
+
+def propagate_arrays(indptr: np.ndarray, e_src: np.ndarray, num_local: int,
+                     n_src: int, features: np.ndarray, device) -> dict:
+    """``full_propagate``'s inputs on ``device`` from a CSR over
+    ``num_local`` destinations (``indptr``; source ids ``e_src`` below
+    ``n_src``, those from ``num_local`` on remote): the features and two
+    edge sets, "local" (remote sources masked and pointed at the zero row
+    ``num_local``) and "every" edge, each with the CSR of its kept edges
+    and its padded edge lists.  The CSRs are built on the host and copied
+    with the features in one transfer; the edge lists, which only the
+    plain versions read, are derived from them on the device."""
+    e_src = np.asarray(e_src).astype(np.int32)
+    src_rows = int(e_src.max()) + 1 if len(e_src) else 0
+    if len(e_src) and (e_src.min() < 0 or src_rows > n_src):
+        raise ValueError(f"edge ids out of range: src [{e_src.min()}, "
+                         f"{src_rows - 1}] for {n_src} rows")
+    every = csr_of(np.asarray(indptr, np.int64), e_src, src_rows)
+    remote = e_src >= num_local
+    if remote.any():
+        # a row's kept edges start after the local edges before the row
+        pos = np.flatnonzero(~remote)
+        kept = e_src[pos]
+        local = csr_of(np.searchsorted(pos, every.indptr), kept,
+                       int(kept.max()) + 1 if len(kept) else 0)
+    else:
+        local = every
+    t = to_device({"features": np.asarray(features, np.float32),
+                   "every": every, "local": local}, device)
+    csr = t["every"]
+    e_src_t = csr.indices
+    e_dst = torch.repeat_interleave(
+        torch.arange(num_local, dtype=torch.int32, device=e_src_t.device),
+        csr.indptr[1:] - csr.indptr[:-1], output_size=len(e_src))
+    remote_t = e_src_t >= num_local
+    out = {"edge_src": e_src_t, "edge_dst": e_dst, "src_is_remote": remote_t,
+           "num_local": num_local, "features": t["features"],
+           "every": {"edge_src": e_src_t, "edge_dst": e_dst,
+                     "edge_mask": torch.ones_like(remote_t), "csr": csr}}
+    out["local"] = out["every"] if local is every else {
+        "edge_src": torch.where(remote_t, num_local, e_src_t),
+        "edge_dst": e_dst, "edge_mask": ~remote_t, "csr": t["local"]}
     return out
 
 
 def shard_to_arrays(shard, device) -> dict:
-    """A ClientShard's CSR over local destinations as a flat edge list."""
-    e_dst = np.repeat(np.arange(shard.num_local), np.diff(shard.indptr))
-    e_src = shard.indices.astype(np.int64)
-    remote = e_src >= shard.num_local
-    return {
-        # remote src ids are already offset past num_local, which is where
-        # full_propagate concatenates the cache table — no remap needed.
-        "edge_src": torch.from_numpy(e_src.astype(np.int32)).to(device),
-        "edge_dst": torch.from_numpy(e_dst.astype(np.int32)).to(device),
-        "src_is_remote": torch.from_numpy(remote).to(device),
-        "num_local": shard.num_local,
-        "features": torch.from_numpy(
-            np.asarray(shard.features, np.float32)).to(device),
-    }
+    """A ClientShard's CSR over local destinations as ``full_propagate``'s
+    inputs (:func:`propagate_arrays`); remote source ids are already
+    offset past num_local, which is where ``full_propagate``
+    concatenates the cache table."""
+    return propagate_arrays(shard.indptr, shard.indices, shard.num_local,
+                            shard.num_local + shard.num_remote,
+                            shard.features, device)

@@ -6,11 +6,13 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 The codec, the fused gather and the scatter-set are held bit-exact; the
-segment mean within rtol = atol = 1e-6 of its plain version run on the
-CPU, which adds in the kernel's order; the scatter-add with duplicate
-rows, whose atomics add in no fixed order, within 1e-6 of each row's
-summed magnitudes; the aggregation's backward bit for bit to its plain
-version on the CPU, and to itself launch after launch; the top-k masks
+segment mean, over the CSR built on the host or the glue's, bit for bit
+to its plain version run on the CPU, which adds in the kernel's order;
+the scatter-add with duplicate rows bit for bit to the plain version on
+the CPU (a sequential ``index_add_``); the aggregation's backward bit
+for bit to its plain version on the CPU, and to itself launch after
+launch; a training step's aggregations and ``full_propagate`` with no
+host sync (``torch.cuda.set_sync_debug_mode("error")``); the top-k masks
 bit for bit; the aggregation over an int8 table bit for bit to the codec's
 decode followed by the fp32 aggregation; the decode attention within
 2e-5 of its plain version in fp32, and in bf16, where the two differ
@@ -37,11 +39,13 @@ from repro_torch.data import synthetic_request_stream
 from repro_torch.exchange import make_transport
 from repro_torch.gnnserve import build_serving
 from repro_torch.graphs import bfs_partition, make_client_shards, make_graph
+from repro_torch.kernels import gnn_aggregate as agg_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import swa_attention as swa_mod
 from repro_torch.launch.steps import shape_variant
 from repro_torch.models import lm
-from repro_torch.models.gnn import init_gnn
+from repro_torch.models.gnn import (blocks_to_arrays, init_gnn, loss_fn,
+                                    to_device)
 
 pytestmark = pytest.mark.gpu
 
@@ -93,6 +97,36 @@ def test_codec_matches_plain(cuda, n, h, offset, odd_byte):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("h", [3, 4, 32, 100, 128])
+@pytest.mark.parametrize("form", ["block", "ld", "misaligned", "gather",
+                                  "gather_ld"])
+def test_encode_matches_plain(cuda, h, form):
+    """Rows 1 and 3 of the kernel table: the encode of a block and the
+    gathered encode (row ids with repeats), on a contiguous table, on a
+    column slice whose rows are h + 8 floats apart (16-byte aligned, so
+    h % 4 == 0 takes the four-values-a-thread kernel), and at an odd
+    float of its storage (the warp-per-row kernel)."""
+    n = 300
+    rng = np.random.default_rng(h)
+    wide = torch.from_numpy(_rows(n, h + 8, h)).to(cuda)
+    x = wide[:, 4:4 + h] if form.endswith("ld") else wide[:, :h].contiguous()
+    if form == "misaligned":
+        flat = torch.empty(n * h + 1, device=cuda)
+        x = flat[1:].view(n, h).copy_(x)
+        assert x.data_ptr() % 16 != 0
+    ops.reset_launch_counts()
+    if form.startswith("gather"):
+        rows = rng.integers(0, n, 517)
+        got = ops.gather_quantize(x, rows)
+        want = ref.gather_quantize(x, torch.from_numpy(rows).to(cuda))
+        assert ops.launch_counts()["gather_quantize"] == 1
+    else:
+        got, want = ops.quantize_int8(x), ref.quantize_int8(x)
+        assert ops.launch_counts()["quantize_int8"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("R,n,h", [(300, 123, 32), (257, 257, 129),
                                    (64, 0, 16)])
 def test_fused_exchange_matches_plain(cuda, R, n, h):
@@ -106,12 +140,40 @@ def test_fused_exchange_matches_plain(cuda, R, n, h):
     ops.dequant_scatter_(a, rows, v, s)
     ref.dequant_scatter_(b, torch.from_numpy(rows).to(cuda), v, s)
     assert torch.equal(a, b)
-    dup = rng.integers(0, R, n)
-    dup_t = torch.from_numpy(dup).to(cuda)
-    mag = ref.dequant_scatter_(b.abs(), dup_t, v.abs(), s, accumulate=True)
+    # duplicate rows (and ids outside the table, dropped) add in index
+    # order, as the plain version's index_add_ does on the CPU
+    dup = rng.integers(-1, R + 1, n)
+    want = ref.dequant_scatter_(b.cpu(), torch.from_numpy(dup), v.cpu(),
+                                s.cpu(), accumulate=True)
     ops.dequant_scatter_(a, dup, v, s, accumulate=True)
-    ref.dequant_scatter_(b, dup_t, v, s, accumulate=True)
-    assert bool(((a - b).abs() <= TOL * mag + TOL).all())
+    assert torch.equal(a.cpu(), want)
+    again = b.clone()
+    ops.dequant_scatter_(again, dup, v, s, accumulate=True)
+    assert torch.equal(again, a)
+    torch.cuda.synchronize()
+
+
+def _aggregate_both_ways(src, dst, mask, feats, n_dst, cuda):
+    """The card's mean and count over the host-built CSR and over the
+    glue's, each checked bit for bit against the plain version on a CPU
+    copy (which adds in the kernel's edge order) and to itself over two
+    launches."""
+    es, ed, em = (torch.from_numpy(a).to(cuda) for a in (src, dst, mask))
+    x = feats if isinstance(feats, torch.Tensor) \
+        else torch.from_numpy(feats).to(cuda)
+    csr = to_device(agg_mod.csr_arrays(x.shape[0], src, dst, mask, n_dst),
+                    cuda)
+    rmean, rcnt = ref.segment_mean(x.cpu(), es.cpu(), ed.cpu(), em.cpu(),
+                                   n_dst)
+    for prebuilt in (csr, None):
+        ops.reset_launch_counts()
+        mean, cnt = ops.gnn_aggregate(x, es, ed, em, n_dst, prebuilt)
+        assert ops.launch_counts()["gnn_aggregate"] == 1
+        assert torch.equal(cnt.cpu(), rcnt)
+        assert torch.equal(mean.cpu(), rmean), \
+            float((mean.cpu() - rmean).abs().max())
+        again, _ = ops.gnn_aggregate(x, es, ed, em, n_dst, prebuilt)
+        assert torch.equal(again, mean)
     torch.cuda.synchronize()
 
 
@@ -123,17 +185,48 @@ def test_segment_mean_matches_plain(cuda, n_src, n_dst, e, f, pad):
     dst = np.r_[np.sort(rng.integers(0, n_dst, e)),
                 np.zeros(pad)].astype(np.int32)
     mask = np.r_[rng.random(e) < 0.7, np.zeros(pad, bool)]
-    feats = _rows(n_src, f, 1)
-    args = [torch.from_numpy(a).to(cuda) for a in (feats, src, dst, mask)]
-    ops.reset_launch_counts()
-    mean, cnt = ops.gnn_aggregate(*args, n_dst)
-    assert ops.launch_counts()["gnn_aggregate"] == 1
-    # the plain version on a CPU copy adds in the kernel's edge order; on
-    # the card its index_add_ would add with atomics in no fixed order
-    rmean, rcnt = ref.segment_mean(*[a.cpu() for a in args], n_dst)
-    assert torch.equal(cnt.cpu(), rcnt)
-    torch.testing.assert_close(mean.cpu(), rmean, rtol=TOL, atol=TOL)
-    torch.cuda.synchronize()
+    _aggregate_both_ways(src, dst, mask, _rows(n_src, f, 1), n_dst, cuda)
+
+
+@pytest.mark.parametrize("f", [1, 3, 32, 96, 100, 128, 130, 300])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_segment_mean_chunk_edges_and_a_heavy_row(cuda, f, misaligned):
+    """Rows of 0, 1, 31, 32, 33, 64 and 65 edges (the edges of a chunk of
+    ids), one of 10,007 and random ones, behind a masked padded tail;
+    every column tile (f > 128, or 256 with 16-byte loads); a table at an
+    odd float of its storage takes the one-float-a-lane variant."""
+    rng = np.random.default_rng(f)
+    degs = np.r_[[0, 1, 31, 32, 33, 64, 65, 10_007],
+                 rng.integers(0, 80, 200)]
+    degs = degs[rng.permutation(len(degs))]
+    n_src, pad = 3000, 77
+    dst = np.r_[np.repeat(np.arange(len(degs)), degs), np.zeros(pad)] \
+        .astype(np.int32)
+    src = rng.integers(0, n_src, len(dst)).astype(np.int32)
+    mask = np.r_[np.ones(len(dst) - pad, bool), np.zeros(pad, bool)]
+    x = torch.from_numpy(_rows(n_src, f, f + 1)).to(cuda)
+    if misaligned:
+        flat = torch.empty(n_src * f + 1, device=cuda)
+        x = flat[1:].view(n_src, f).copy_(x)
+    _aggregate_both_ways(src, dst, mask, x, len(degs), cuda)
+
+
+def test_prebuilt_csr_is_checked_against_the_table(cuda):
+    src = np.array([0, 5, 9], np.int32)
+    dst = np.array([0, 0, 1], np.int32)
+    mask = np.ones(3, bool)
+    csr = to_device(agg_mod.csr_arrays(10, src, dst, mask, 2,
+                                       transposed=True), cuda)
+    es, ed, em = (torch.from_numpy(a).to(cuda) for a in (src, dst, mask))
+    with pytest.raises(ValueError, match="table of 8 rows"):
+        ops.gnn_aggregate(torch.zeros((8, 4), device=cuda), es, ed, em, 2,
+                          csr)
+    with pytest.raises(ValueError, match="3 destinations"):
+        ops.gnn_aggregate(torch.zeros((10, 4), device=cuda), es, ed, em, 3,
+                          csr)
+    with pytest.raises(ValueError, match="10 sources for a table of 12"):
+        ops.gnn_aggregate(torch.zeros((12, 4), device=cuda,
+                                      requires_grad=True), es, ed, em, 2, csr)
 
 
 def _publish_and_serve(device):
@@ -276,6 +369,37 @@ def test_training_on_the_card_is_reproducible(cuda):
     assert s_a.accuracy == s_b.accuracy
     for a, b in zip(tr_a.model.leaves(), tr_b.model.leaves()):
         assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def test_aggregations_on_the_path_never_wait_on_the_host(cuda):
+    """One training step (forward and backward, every block carrying its
+    host-built CSR) and ``full_propagate`` over both of a shard's edge
+    sets run under ``set_sync_debug_mode("error")``: no aggregation call
+    waits on the card."""
+    g = make_graph("reddit", scale=0.3, seed=2)
+    st = dataclasses.replace(default_strategies()["OPG"], codec="int8",
+                             score_kind="degree")
+    model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cuda")
+    tr = FederatedGNNTrainer(g, 2, st, model=model, device="cuda")
+    batch = blocks_to_arrays(next(tr.samplers[0].epoch()), "cuda")
+    leaves = tr.model.leaves()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = loss_fn(tr.model, batch, tr.feats[0], tr._caches[0],
+                       tr.labels[0])
+        torch.autograd.grad(loss, leaves)
+        tr.model.full_propagate(tr.shard_arrays[0], tr._caches[0])
+        tr.model.full_propagate(tr.shard_arrays[0], None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = ops.launch_counts()
+    assert counts["gnn_aggregate"] == 3 + 3 + 3
+    assert counts["segment_mean_bwd"] == 2
     torch.cuda.synchronize()
 
 

@@ -64,7 +64,11 @@ def measure(torch, calls: int = 10_000, n: int = 59_803,
         quant.check_cuda(s, torch.float32, "scales", 2)
         quant.check_cuda(out, torch.float32, "out", 2)
 
-    args = (q, s, out, None, n, h, n, 0)
+    # the null row ids and, since the scatter-add sorts them, their null
+    # sort order: the struct's pointer fields before n
+    sig = getattr(_build, "SIGNATURES", {}).get("dequantize_rows")
+    nulls = (None,) * (len(sig) - 8 if sig else 1)
+    args = (q, s, out, *nulls, n, h, n, 0)
     pointers = [a.data_ptr() if isinstance(a, torch.Tensor) else a or 0
                 for a in args]
     if hasattr(_build, "current_stream"):  # the lean launch path
