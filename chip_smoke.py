@@ -80,10 +80,14 @@ Phases, each of which fails the run:
 9. Pull then aggregate (before step 8): client 0's layer-2
    ``full_propagate`` source rows (85,185 × 32) written to an embedding
    server on the card, pulled back in int8 with ``gather_quantized`` and
-   aggregated by ``dequant_aggregate`` (counters zeroed just before,
-   read just after); bit-equal to ``gnn_aggregate(dequantize_int8)``
-   over the host CSR and over the glue's, and within 1e-6 of the plain
-   version on a CPU copy, then timed.
+   aggregated by ``dequant_aggregate`` over the edge set's CSR built on
+   the host (counters zeroed just before, read just after; a call of the
+   CSR glue or a host sync in the aggregation fails the run); bit-equal
+   to ``gnn_aggregate(dequantize_int8)`` over the host CSR and over the
+   glue's, to its own call over the glue's CSR, and within 1e-6 of the
+   plain version on a CPU copy, then timed over the host CSR beside the
+   call over the edge lists alone, with the kept-degree statistics
+   printed.
 10. Decode attention kernel: ``swa_attention_decode`` against its plain
    version, fp32 within 2e-5 at the JAX tests' shapes (wrapped rings
    with part of each ring in the future) plus ``window=None`` with a
@@ -350,6 +354,25 @@ def agg_edge_list_bytes(src, e_all: int, kept: int, n_dst: int) -> int:
         + n_dst * (src.shape[1] + 1) * 4
 
 
+def agg_int8_bytes(values, n_dst: int, kept: int) -> int:
+    """Row 6's compulsory bytes as the path calls it, over the host-built
+    CSR: the int8 table, its fp32 scales, the int64 row pointer, the kept
+    edges' int32 source ids, the int32 row order and the fp32 mean out."""
+    n_src, f = values.shape
+    return n_src * f + n_src * 4 + (n_dst + 1) * 8 + kept * 4 + n_dst * 4 \
+        + n_dst * f * 4
+
+
+def agg_int8_edge_list_bytes(values, e_all: int, kept: int,
+                             n_dst: int) -> int:
+    """The bytes a call of row 6 over the padded edge lists alone must
+    move (its earlier count): the int8 table and scales, every edge's mask
+    byte, the kept edges' int32 source and destination ids, the mean
+    out."""
+    n_src, f = values.shape
+    return n_src * f + n_src * 4 + e_all + kept * (4 + 4) + n_dst * f * 4
+
+
 def agg_check(torch, what: str, src, edges: tuple, n_dst: int, csr):
     """The aggregation over the host-built ``csr`` and over the glue's,
     each bit-equal to the plain version on a CPU copy of the inputs (which
@@ -522,7 +545,7 @@ def kernel_phase(torch, np, shards, num_vertices: int) -> list[dict]:
           entry_ms=time_ms(torch, lambda: ops.dequant_scatter_(
               t_k, pub_rows, pv, ps)),
           device_ms=device_ms(torch, lambda: fused.dequant_scatter_(
-              t_k, pidx, pv, ps), "dequantize_rows_kernel"))
+              t_k, pidx, pv, ps), "scatter_quads_kernel"))
 
     # gnn_aggregate: layer 1 of full_propagate on one client's shard, over
     # the CSR of its local edges built on the host (the path's call)
@@ -1340,10 +1363,14 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
     ``full_propagate``: the source rows (local + cached remote) are
     written to an embedding server on the card, pulled back in int8 wire
     form with ``gather_quantized`` and aggregated by
-    ``ops.dequant_aggregate``.  The launch counters are zeroed just
-    before the pull and read just after the aggregation; then the kernel
-    is held bit-equal to the port's decode followed by its fp32
-    aggregation, and to the plain version on a CPU copy within TOL."""
+    ``ops.dequant_aggregate`` over the CSR of the edge set built on the
+    host with the shard.  The launch counters are zeroed just before the
+    pull and read just after the aggregation, which runs with the card's
+    CSR glue watched and under ``set_sync_debug_mode("error")``: a glue
+    call or a host sync fails the run.  Then the kernel is held bit-equal
+    to the port's decode followed by its fp32 aggregation (over the host
+    CSR and over the glue's), to its own call over the glue's CSR and to
+    itself, and to the plain version on a CPU copy within TOL."""
     from repro_torch.exchange import make_transport
     from repro_torch.kernels import gnn_aggregate as agg_mod
     from repro_torch.kernels import ops, ref
@@ -1355,6 +1382,7 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
     every = arr["every"]
     e_src, e_dst, mask = every["edge_src"], every["edge_dst"], \
         every["edge_mask"]
+    csr = every["csr"]
     gen = torch.Generator(device=DEV).manual_seed(99)
     tr = make_transport(3, hidden, device=DEV)
     gids = np.arange(n_src)
@@ -1365,51 +1393,82 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
 
     ops.reset_launch_counts()
     values, scales = tr.gather_quantized(gids, [1])[0]
-    mean = ops.dequant_aggregate(values, scales, e_src, e_dst, mask, n_dst)
+    glue: list = []
+    with timed(agg_mod, "csr_from_edges", glue):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mean = ops.dequant_aggregate(values, scales, e_src, e_dst, mask,
+                                         n_dst, csr)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    check(not glue, "the CSR glue ran on the pull chain's aggregation")
     check(counts["dequant_aggregate"] == 1 and counts["gather_quantize"] == 1,
           f"pull-then-aggregate launches {counts}")
 
+    args = (values, scales, e_src, e_dst, mask)
     decoded = ops.dequantize_int8(values, scales)
-    for csr in (every["csr"], None):
+    for prebuilt in (csr, None):
+        how = "host" if prebuilt is not None else "glue"
         two_step, _ = ops.gnn_aggregate(decoded, e_src, e_dst, mask, n_dst,
-                                        csr)
+                                        prebuilt)
         check(torch.equal(mean, two_step), "dequant_aggregate is not "
               "bit-equal to gnn_aggregate(dequantize_int8) at row 5b' "
-              f"shape ({'host' if csr is not None else 'glue'} CSR)")
-    args = (values, scales, e_src, e_dst, mask)
+              f"shape ({how} CSR)")
+        check(torch.equal(ops.dequant_aggregate(*args, n_dst, prebuilt),
+                          mean),
+              f"dequant_aggregate over the {how} CSR: another launch "
+              "differs")
     want = ref.dequant_aggregate(*[a.cpu() for a in args], n_dst)
     err = max_err(mean.cpu(), want)
     check(torch.allclose(mean.cpu(), want, rtol=TOL, atol=TOL),
           f"dequant_aggregate off its plain version by {err}")
     check(bool(torch.isfinite(mean).all()), "dequant_aggregate: not finite")
+    degree = kept_degree(np, csr.indptr)
     print(f"pull-then-aggregate: {n_src}x{hidden} int8 -> {n_dst} rows, "
+          f"kept degree {json.dumps(degree)}, no glue and no host sync, "
           f"bit-equal to gnn_aggregate(dequantize_int8), plain max|d| "
           f"{err:.3g}", flush=True)
 
-    indptr, indices = agg_mod.csr_from_edges(n_src, e_src, e_dst, mask,
-                                             n_dst)
-    kept = int(indices.shape[0])
-    gathered = ref.dequantize_int8(values, scales)[indices.long()]
+    kept = int(csr.indices.shape[0])
+    e_all = int(e_src.shape[0])
+    gathered = ref.dequantize_int8(values, scales)[csr.indices.long()]
     dst_kept = e_dst[mask].long()
     lib_out = torch.zeros((n_dst, hidden), device=DEV)
     report: list = []
     add_entry(report, "dequant_aggregate",
               "src/repro_torch/csrc/segment_mean_csr_int8.cu",
               "src/repro/kernels/gnn_aggregate.py:134", err,
-              (n_src, hidden, n_dst, int(e_src.shape[0])),
-              time_ms(torch, lambda: ops.dequant_aggregate(*args, n_dst)),
+              (n_src, hidden, n_dst, e_all),
+              time_ms(torch, lambda: ops.dequant_aggregate(*args, n_dst,
+                                                           csr)),
               time_ms(torch, lambda: ref.dequant_aggregate(*args, n_dst)),
-              # int8 table and scales, every edge's mask byte, the int32
-              # ids of the kept edges, the mean out
-              values.numel() + n_src * 4 + int(e_src.shape[0])
-              + kept * (4 + 4) + n_dst * hidden * 4,
+              agg_int8_bytes(values, n_dst, kept),
               library_ms=time_ms(torch, lambda: lib_out.index_reduce_(
                   0, dst_kept, gathered, "mean", include_self=False)),
-              kept_edges=kept, bit_equal_to_two_step=True,
+              # the same call over the edge lists alone: the CSR built by
+              # torch glue on the card, two host syncs
+              edge_list_ms=time_ms(torch, lambda: ops.dequant_aggregate(
+                  *args, n_dst)),
+              # bound_ms counts the bytes of the call over the host CSR;
+              # this, those of a call over the edge lists alone
+              bound_edge_list_ms=bound_ms(agg_int8_edge_list_bytes(
+                  values, e_all, kept, n_dst)),
+              # the two-step chain it fuses, the codec's decode then the
+              # fp32 aggregation over the same host CSR, and the device
+              # time of that aggregation
+              two_step_ms=time_ms(torch, lambda: ops.gnn_aggregate(
+                  ops.dequantize_int8(values, scales), e_src, e_dst, mask,
+                  n_dst, csr)),
+              two_step_agg_device_ms=device_ms(
+                  torch, lambda: ops.gnn_aggregate(decoded, e_src, e_dst,
+                                                   mask, n_dst, csr),
+                  "segment_mean_csr_kernel"),
+              kept_edges=kept, kept_degree=degree,
+              bit_equal_to_two_step=True,
               device_ms=device_ms(torch, lambda: ops.dequant_aggregate(
-                  *args, n_dst), "segment_mean_csr_int8_kernel"))
+                  *args, n_dst, csr), "segment_mean_csr_int8_group_kernel"))
     return counts, report
 
 

@@ -189,8 +189,9 @@ class EmbeddingServer:
                                  device=self.device),
                      torch.zeros((0, 1), dtype=torch.float32,
                                  device=self.device)) for _ in sel]
-        rows = self._rows(global_ids)
-        return [ops.gather_quantize(self._bufs[l - 1], rows) for l in sel]
+        idx = ops.row_index(self._rows(global_ids), self._cap, self.device,
+                            check=True)
+        return [ops.gather_quantize(self._bufs[l - 1], idx) for l in sel]
 
     def write_quantized(self, global_ids: np.ndarray,
                         layer_payloads: list[tuple]) -> None:
@@ -202,8 +203,9 @@ class EmbeddingServer:
         if len(global_ids) == 0:
             return
         rows = self._rows(global_ids)
+        idx = ops.row_index(rows, self._cap, self.device, check=False)
         for buf, (v, s) in zip(self._bufs, layer_payloads):
-            ops.dequant_scatter_(buf, rows, v, s)
+            ops.dequant_scatter_(buf, idx, v, s)
         self._ver[rows] += 1
 
     def versions(self, global_ids: np.ndarray) -> np.ndarray:

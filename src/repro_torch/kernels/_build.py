@@ -52,7 +52,7 @@ SIGNATURES: dict[str, list] = {
     "segment_mean_csr_bwd": [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P],
     "count_ge": [_P, _I64, _P, _P, _P],
     "topk_select": [_P, _I64, _I64, _P, _P, _I32, _P],
-    "segment_mean_csr_int8": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "segment_mean_csr_int8": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
     "swa_decode": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                    _I32, _I32, _I32, _I32, _F32, _P, _P],
 }

@@ -34,7 +34,8 @@ source is the feature table, and serving (no gradient) run no backward.
 
 :func:`dequant_aggregate` is the same mean over an int8 source table
 with per-row scales (the wire form of a pull), through
-``csrc/segment_mean_csr_int8.cu``; forward only, like the JAX kernel.
+``csrc/segment_mean_csr_int8.cu``, over the same :class:`Csr` where the
+caller has one; forward only, like the JAX kernel.
 """
 
 from __future__ import annotations
@@ -215,6 +216,18 @@ def _device_csr(csr: Csr, src: torch.Tensor, n_dst: int) -> None:
                          f"table of {src.shape[0]} rows")
 
 
+def _launch_csr(src: torch.Tensor, edge_src, edge_dst, edge_mask,
+                n_dst: int, csr: Csr | None) -> tuple:
+    """(indptr, indices, order) to launch on: the host-built ``csr``,
+    checked against the table ``src`` on the host, or, without one, the
+    glue's CSR of the edge lists (taken in row order)."""
+    if csr is None:
+        return (*csr_from_edges(src.shape[0], edge_src, edge_dst, edge_mask,
+                                n_dst), None)
+    _device_csr(csr, src, n_dst)
+    return csr.indptr, csr.indices, csr.order
+
+
 class GnnAggregate(torch.autograd.Function):
     """Masked neighbour mean with its gradient: the kernels on the card
     (over ``csr`` where the block carries one), the plain versions over
@@ -225,13 +238,8 @@ class GnnAggregate(torch.autograd.Function):
     def forward(ctx, src, edge_src, edge_dst, edge_mask, n_dst, csr=None):
         ctx.n_src = src.shape[0]
         if src.device.type == "cuda":
-            if csr is None:
-                indptr, indices = csr_from_edges(src.shape[0], edge_src,
-                                                 edge_dst, edge_mask, n_dst)
-                order = None
-            else:
-                _device_csr(csr, src, n_dst)
-                indptr, indices, order = csr.indptr, csr.indices, csr.order
+            indptr, indices, order = _launch_csr(src, edge_src, edge_dst,
+                                                 edge_mask, n_dst, csr)
             mean, cnt = segment_mean_csr(src, indptr, indices, order)
             if ctx.needs_input_grad[0]:
                 if csr is not None and csr.t_indptr is not None:
@@ -281,22 +289,25 @@ def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
 
 def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,
                       edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                      edge_mask: torch.Tensor, n_dst: int) -> torch.Tensor:
+                      edge_mask: torch.Tensor, n_dst: int,
+                      csr: Csr | None = None) -> torch.Tensor:
     """Masked neighbour mean over an int8 table on the card: values
     (N_src, F) int8, scales (N_src, 1) fp32 → mean (n_dst, F) fp32,
     bit-equal to ``gnn_aggregate(dequantize_int8(values, scales), …)``
-    through the port's kernels."""
+    through the port's kernels; over ``csr`` (a :class:`Csr` of the same
+    kept edges on the card) where given, with no glue and no host
+    sync."""
     check_cuda(values, torch.int8, "values", 2)
     check_cuda(scales, torch.float32, "scales", 2)
     n_src, f = values.shape
     if scales.shape != (n_src, 1):
         raise ValueError(f"scales {tuple(scales.shape)} for values "
                          f"{tuple(values.shape)}")
-    indptr, indices = csr_from_edges(n_src, edge_src, edge_dst, edge_mask,
-                                     n_dst)
+    indptr, indices, order = _launch_csr(values, edge_src, edge_dst,
+                                         edge_mask, n_dst, csr)
     mean = torch.empty((n_dst, f), dtype=torch.float32, device=values.device)
     if n_dst == 0:
         return mean
     launch("dequant_aggregate", "segment_mean_csr_int8", values, scales,
-           indptr, indices, n_dst, f, mean)
+           indptr, indices, order, n_dst, f, mean)
     return mean

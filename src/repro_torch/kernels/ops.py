@@ -66,11 +66,22 @@ def dequantize_int8(values: torch.Tensor,
     return ref.dequantize_int8(values, scales)
 
 
+def _index(rows, table: torch.Tensor, *, check: bool) -> torch.Tensor:
+    """``rows`` as the int32 index of ``table``'s rows: an int32 tensor
+    already on the table's device as it is (made by :func:`row_index`),
+    anything else through :func:`row_index`."""
+    if (isinstance(rows, torch.Tensor) and rows.dtype == torch.int32
+            and rows.device == table.device):
+        return rows
+    return row_index(rows, table.shape[0], table.device, check=check)
+
+
 def gather_quantize(table: torch.Tensor, rows
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused pull response ``quantize_int8(table[rows])``; ``rows`` are
-    host ids, checked against the table."""
-    idx = row_index(rows, table.shape[0], table.device, check=True)
+    host ids, checked against the table, or an int32 index on the
+    table's device that :func:`row_index` made with ``check=True``."""
+    idx = _index(rows, table, check=True)
     if _on_cuda(table):
         return _fused.gather_quantize(table, idx)
     return ref.gather_quantize(table, idx)
@@ -79,9 +90,10 @@ def gather_quantize(table: torch.Tensor, rows
 def dequant_scatter_(table: torch.Tensor, rows, values: torch.Tensor,
                      scales: torch.Tensor, *,
                      accumulate: bool = False) -> torch.Tensor:
-    """Fused push apply into ``table`` in place; ``rows`` are host ids
-    (unique unless ``accumulate``), ids outside [0, R) dropped."""
-    idx = row_index(rows, table.shape[0], table.device, check=False)
+    """Fused push apply into ``table`` in place; ``rows`` are host ids or
+    an int32 index on the table's device (:func:`row_index`), unique
+    unless ``accumulate``, ids outside [0, R) dropped."""
+    idx = _index(rows, table, check=False)
     if _on_cuda(table):
         return _fused.dequant_scatter_(table, idx, values, scales,
                                        accumulate=accumulate)
@@ -107,14 +119,20 @@ def gnn_aggregate(src: torch.Tensor, edge_src: torch.Tensor,
 
 def dequant_aggregate(values: torch.Tensor, scales: torch.Tensor,
                       edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                      edge_mask: torch.Tensor, n_dst: int) -> torch.Tensor:
+                      edge_mask: torch.Tensor, n_dst: int,
+                      csr: _agg.Csr | None = None) -> torch.Tensor:
     """Masked neighbour mean over an int8 source table (values (N_src, F)
     int8, scales (N_src, 1) fp32) and a destination-grouped edge list →
     mean (n_dst, F) fp32, equal to ``gnn_aggregate(dequantize_int8(values,
-    scales), …)[0]``.  Forward only, as in the JAX package."""
+    scales), …)[0]``.  Forward only, as in the JAX package.  ``csr``, the
+    :class:`Csr` of the same kept edges built on the host, spares the
+    card the glue that builds it; it is checked against the table on
+    either device, and the CPU's plain version runs over the edge lists."""
     if _on_cuda(values):
         return _agg.dequant_aggregate(values, scales, edge_src, edge_dst,
-                                      edge_mask, n_dst)
+                                      edge_mask, n_dst, csr)
+    if csr is not None:
+        _agg._device_csr(csr, values, n_dst)
     return ref.dequant_aggregate(values, scales, edge_src, edge_dst,
                                  edge_mask, n_dst)
 

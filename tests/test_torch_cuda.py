@@ -13,8 +13,9 @@ the CPU (a sequential ``index_add_``); the aggregation's backward bit
 for bit to its plain version on the CPU, and to itself launch after
 launch; a training step's aggregations and ``full_propagate`` with no
 host sync (``torch.cuda.set_sync_debug_mode("error")``); the top-k masks
-bit for bit; the aggregation over an int8 table bit for bit to the codec's
-decode followed by the fp32 aggregation; the decode attention within
+bit for bit; the aggregation over an int8 table, over the host-built CSR
+or the glue's, bit for bit to the codec's decode followed by the fp32
+aggregation; the decode attention within
 2e-5 of its plain version in fp32, and in bf16, where the two differ
 only in rounding the fp32 result, within one bf16 step of each element
 (2^-7 of it, plus 1e-5 near zero).  A short training
@@ -140,6 +141,19 @@ def test_fused_exchange_matches_plain(cuda, R, n, h):
     ops.dequant_scatter_(a, rows, v, s)
     ref.dequant_scatter_(b, torch.from_numpy(rows).to(cuda), v, s)
     assert torch.equal(a, b)
+    # set mode with ids outside [0, R) dropped: four values a thread where
+    # h % 4 == 0 and the table is 16-byte aligned; a table view one float
+    # into its storage takes the warp-per-row kernel, with the same bytes
+    dropped = rows.copy()
+    dropped[: min(n, 2)] = [-1, R][: min(n, 2)]
+    want = ref.dequant_scatter_(t.clone(), torch.from_numpy(dropped)
+                                .to(cuda), v, s)
+    idx = ops.row_index(dropped, R, cuda, check=False)
+    assert torch.equal(ops.dequant_scatter_(t.clone(), idx, v, s), want)
+    flat = torch.empty(R * h + 1, device=cuda)
+    view = flat[1:].view(R, h).copy_(t)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(ops.dequant_scatter_(view, dropped, v, s), want)
     # duplicate rows (and ids outside the table, dropped) add in index
     # order, as the plain version's index_add_ does on the CPU
     dup = rng.integers(-1, R + 1, n)
@@ -403,6 +417,31 @@ def test_aggregations_on_the_path_never_wait_on_the_host(cuda):
     torch.cuda.synchronize()
 
 
+def _dequant_aggregate_both_ways(values, scales, src, dst, mask, n_dst,
+                                 cuda):
+    """The int8 aggregation over the host-built CSR and over the glue's,
+    each one launch, bit-equal to the codec's decode followed by the fp32
+    aggregation and to itself over two launches, and within TOL of the
+    plain version on a CPU copy."""
+    edges = [torch.from_numpy(a).to(cuda) for a in (src, dst, mask)]
+    csr = to_device(agg_mod.csr_arrays(values.shape[0], src, dst, mask,
+                                       n_dst), cuda)
+    want, _ = ops.gnn_aggregate(ops.dequantize_int8(values, scales), *edges,
+                                n_dst, csr)
+    plain = ref.dequant_aggregate(*[t.cpu() for t in (values, scales,
+                                                      *edges)], n_dst)
+    for prebuilt in (csr, None):
+        ops.reset_launch_counts()
+        got = ops.dequant_aggregate(values, scales, *edges, n_dst, prebuilt)
+        assert ops.launch_counts()["dequant_aggregate"] == 1
+        assert torch.equal(got, want), float((got - want).abs().max())
+        assert torch.equal(
+            ops.dequant_aggregate(values, scales, *edges, n_dst, prebuilt),
+            got)
+        assert torch.allclose(got.cpu(), plain, rtol=TOL, atol=TOL)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("n_src,n_dst,e,f,pad", [
     (300, 100, 600, 32, 0), (257, 257, 3000, 129, 40), (85185, 59803,
                                                        400_000, 32, 0)])
@@ -415,17 +454,51 @@ def test_dequant_aggregate_bit_equal_to_decode_then_aggregate(
     dst = np.concatenate([np.sort(rng.integers(0, n_dst, e)),
                           np.zeros(pad, np.int64)]).astype(np.int32)
     mask = np.concatenate([rng.random(e) < 0.8, np.zeros(pad, bool)])
-    edges = [torch.from_numpy(a).to(cuda) for a in (src, dst, mask)]
-    ops.reset_launch_counts()
-    got = ops.dequant_aggregate(values, scales, *edges, n_dst)
-    assert ops.launch_counts()["dequant_aggregate"] == 1
-    want, _ = ops.gnn_aggregate(ops.dequantize_int8(values, scales), *edges,
-                                n_dst)
-    assert torch.equal(got, want)
-    plain = ref.dequant_aggregate(*[t.cpu() for t in (values, scales,
-                                                      *edges)], n_dst)
-    assert torch.allclose(got.cpu(), plain, rtol=TOL, atol=TOL)
-    torch.cuda.synchronize()
+    _dequant_aggregate_both_ways(values, scales, src, dst, mask, n_dst, cuda)
+
+
+@pytest.mark.parametrize("f", [1, 3, 32, 33, 96, 130])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_dequant_aggregate_chunk_edges_and_a_heavy_row(cuda, f, misaligned):
+    """Rows of 0, 1, 31, 32, 33, 64 and 65 kept edges (the edges of a
+    chunk of ids), one of 10,007 and random ones, behind a masked padded
+    tail; every group width (1 to 32 lanes a row) and the column tiles
+    past 32 lanes; an int8 table at an odd byte of its storage takes the
+    one-byte-a-lane variant."""
+    rng = np.random.default_rng(f + 1000)
+    degs = np.r_[[0, 1, 31, 32, 33, 64, 65, 10_007],
+                 rng.integers(0, 80, 200)]
+    degs = degs[rng.permutation(len(degs))]
+    n_src, pad = 3000, 77
+    dst = np.r_[np.repeat(np.arange(len(degs)), degs), np.zeros(pad)] \
+        .astype(np.int32)
+    src = rng.integers(0, n_src, len(dst)).astype(np.int32)
+    mask = np.r_[np.ones(len(dst) - pad, bool), np.zeros(pad, bool)]
+    values, scales = ops.quantize_int8(
+        torch.from_numpy(_rows(n_src, f, f + 7)).to(cuda))
+    if misaligned:
+        flat = torch.empty(n_src * f + 1, dtype=torch.int8, device=cuda)
+        values = flat[1:].view(n_src, f).copy_(values)
+    _dequant_aggregate_both_ways(values, scales, src, dst, mask, len(degs),
+                                 cuda)
+
+
+def test_prebuilt_csr_is_checked_against_the_int8_table(cuda):
+    src = np.array([0, 5, 9], np.int32)
+    dst = np.array([0, 0, 1], np.int32)
+    mask = np.ones(3, bool)
+    csr = to_device(agg_mod.csr_arrays(10, src, dst, mask, 2), cuda)
+    es, ed, em = (torch.from_numpy(a).to(cuda) for a in (src, dst, mask))
+    scales = torch.ones((8, 1), device=cuda)
+    with pytest.raises(ValueError, match="table of 8 rows"):
+        ops.dequant_aggregate(torch.zeros((8, 4), dtype=torch.int8,
+                                          device=cuda), scales, es, ed, em,
+                              2, csr)
+    with pytest.raises(ValueError, match="3 destinations"):
+        ops.dequant_aggregate(torch.zeros((10, 4), dtype=torch.int8,
+                                          device=cuda),
+                              torch.ones((10, 1), device=cuda), es, ed, em,
+                              3, csr)
 
 
 def _swa_inputs(B, T, Hkv, G, dh, seed, dtype, device, at_head):

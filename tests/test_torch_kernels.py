@@ -16,7 +16,8 @@ Pallas kernel in interpret mode within the JAX test's own tolerances
 (2e-5 in fp32, 3e-2 in bf16): the three round in other places (the
 Pallas kernel divides after the p·V product, its oracle casts p to V's
 dtype).  The aggregation over an int8 table is held to JAX's
-``ops.dequant_aggregate`` within the segment mean's 1e-6.
+``ops.dequant_aggregate`` within the segment mean's 1e-6, with and
+without the host-built CSR of the same edges.
 """
 
 import jax
@@ -414,6 +415,53 @@ def test_dequant_aggregate_matches_jax(n_src, n_dst, k, h):
                             torch.from_numpy(scales)),
         *_ell_as_edges(idx, mask), n_dst)
     assert torch.equal(got, two_step)
+
+
+@pytest.mark.parametrize("n_src,n_dst,k,h", [
+    (300, 100, 5, 32), (257, 257, 3, 129), (64, 30, 4, 128)])
+def test_dequant_aggregate_over_a_host_csr_matches_jax(n_src, n_dst, k, h):
+    """Given the host-built CSR of the same edges, the CPU ignores it for
+    the arithmetic (the plain version runs over the edge lists) but still
+    checks it against the table and the destination count."""
+    rng = np.random.default_rng(n_src + h + 1)
+    values, scales = jops._np_quantize_int8(
+        rng.standard_normal((n_src, h)).astype(np.float32))
+    idx = rng.integers(0, n_src, (n_dst, k)).astype(np.int32)
+    mask = rng.random((n_dst, k)) < 0.7
+    edges = _ell_as_edges(idx, mask)
+    csr = tagg.csr_arrays(n_src, *[e.numpy() for e in edges], n_dst)
+    tv, ts = torch.from_numpy(values), torch.from_numpy(scales)
+    got = ops.dequant_aggregate(tv, ts, *edges, n_dst, csr)
+    assert torch.equal(got, ops.dequant_aggregate(tv, ts, *edges, n_dst))
+    want = jops.dequant_aggregate(values, scales, idx, mask)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
+    short = csr.src_rows - 1
+    with pytest.raises(ValueError, match=f"table of {short} rows"):
+        ops.dequant_aggregate(tv[:short], ts[:short], *edges, n_dst, csr)
+    with pytest.raises(ValueError, match=f"{n_dst + 1} destinations"):
+        ops.dequant_aggregate(tv, ts, *edges, n_dst + 1, csr)
+
+
+def test_fused_exchange_takes_a_device_index_as_it_is():
+    """An int32 index on the table's device (``row_index``) gives the
+    same bytes as the host ids it was made from; other ids go through
+    ``row_index``, which checks a gather's range."""
+    table = torch.from_numpy(_rows(40, 8, 3))
+    rows = np.array([3, 17, 0, 39, 22])
+    idx = ops.row_index(rows, 40, table.device, check=True)
+    assert idx.dtype == torch.int32
+    for got, want in zip(ops.gather_quantize(table, idx),
+                         ops.gather_quantize(table, rows)):
+        assert torch.equal(got, want)
+    v, s = ops.quantize_int8(torch.from_numpy(_rows(5, 8, 4)))
+    pushed = ops.dequant_scatter_(table.clone(), idx, v, s)
+    assert torch.equal(pushed, ops.dequant_scatter_(table.clone(), rows, v,
+                                                    s))
+    assert torch.equal(
+        pushed, ops.dequant_scatter_(table.clone(),
+                                     torch.from_numpy(rows), v, s))
+    with pytest.raises(IndexError, match="outside a table of 40 rows"):
+        ops.gather_quantize(table, torch.tensor([0, 40]))
 
 
 def test_pull_then_dequant_aggregate_matches_jax():
