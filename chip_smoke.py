@@ -116,6 +116,36 @@ Phases, each of which fails the run:
    (plain versions) from one set of parameters and one cache (8188 of
    8192 slots seen), 8 teacher-forced steps; logits within 1e-3 of the
    largest logit at every step, TF32 off.
+13. Sharded training (after step 8): the same graph and partition, 4
+   clients, OPG + int8 + degree scores over 4 embedding-server shards
+   with pull-frequency placement (``rebalance_round=1``), AdamW lr 1e-2,
+   2 epochs a round, each client's epochs cut to 16 minibatches, tracing
+   on.  Built and run through the trainer's own code: construct,
+   ``pretrain_round``, ``run_round(0)`` and ``run_round(1)``, which
+   re-places the rows by observed pulls before its pulls.  Launch
+   counters are zeroed before the trainer is built and read after each
+   round (before that round's checks, and zeroed after them).  Fails
+   unless: every loss is finite, each client's last 8 losses average
+   below its first 8, accuracies lie in [0, 1]; every training kernel
+   launched; the fused pulls' and pushes' launches equal one a non-empty
+   shard and layer of each call, and all of the window's; after each
+   round every registered gid, read through the sharded pull (once
+   under ``set_sync_debug_mode("error")``) and gather, is bit-equal to an
+   in-process transport holding the same rows; the rebalance keeps
+   every row's values and LPT's fullest shard holds no more pull mass
+   than ``gid % 4``'s; the spans number clients x rounds (pulls, push
+   computes), clients x epochs x rounds (epochs) and rounds
+   (aggregates); the exported model serves a 512-query burst with the
+   threshold-1.0 answers equal to ``offline_predict`` and the
+   ``pt_gnnserve.*`` metrics moved by the plane's stats; SGD and
+   Adafactor lower client 0's loss in 16 steps; and one step of SGD,
+   AdamW and Adafactor on the card equals the CPU's within 1e-6
+   relative.  It prints the set-up seconds, steps/s and step times split
+   as step 6, fill / push / aggregate seconds, the shard logs of each
+   round, the fullest shard's pull mass under hash and LPT, the modelled
+   pull of one server against 4 shards, the spans' seconds, a trace-off
+   / trace-on step timing in turns, and rows 3 and 4 at the per-shard
+   shapes; the Chrome trace goes to ``build/sharded_trace.json``.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -156,6 +186,10 @@ LM_REQUESTS = 32              # batcher: 64-token prompts, 64 new tokens
 LM_PROMPT = 64
 LM_NEW = 64
 LM_REF_STEPS = 8              # card vs CPU, fp32, teacher-forced
+SHARDS = 4                    # embedding-server shards of the sharded phase
+SHARDED_STEPS = 16            # minibatches per client epoch there
+SHARDED_EPOCHS = 2            # the overlapped push runs after epoch 1
+SHARDED_QUERIES = 512
 
 
 class SmokeFailure(Exception):
@@ -701,17 +735,20 @@ def reference_phase(torch, np) -> None:
 
 
 @contextlib.contextmanager
-def timed(owner, name: str, log: list, args_log: list | None = None):
+def timed(owner, name: str, log: list, args_log: list | None = None,
+          sync=None):
     """Within the block, each call of ``owner.name`` (a module's function,
     a class's method or an instance's bound method) appends its host
-    seconds to ``log`` and, given ``args_log``, its positional
-    arguments."""
+    seconds to ``log`` (after ``sync()``, where given) and, given
+    ``args_log``, its positional arguments."""
     inner = getattr(owner, name)
     own = name in vars(owner)
 
     def wrapper(*args, **kw):
         t = time.perf_counter()
         out = inner(*args, **kw)
+        if sync is not None:
+            sync()
         log.append(time.perf_counter() - t)
         if args_log is not None:
             args_log.append(args)
@@ -1472,6 +1509,553 @@ def pull_aggregate_phase(torch, np, trainer) -> tuple[dict, list[dict]]:
     return counts, report
 
 
+# -- phase 13: sharded training with pull-frequency placement -----------------
+
+def sharded_strategy():
+    """OPG + int8 + degree scores over 4 embedding-server shards, rows
+    re-placed by observed pull frequency before round 1's pulls."""
+    return dataclasses.replace(opg_int8(), num_server_shards=SHARDS,
+                               shard_placement="pull_frequency",
+                               rebalance_round=1)
+
+
+@contextlib.contextmanager
+def shard_launch_tally(np, tr, tally: dict):
+    """Within the block, each fused pull (``gather_quantized``) and push
+    apply (``write_quantized``) of the sharded transport ``tr`` adds to
+    ``tally[kind]`` the launches of its kernel across the call
+    (``counted``), the launches its non-empty shards call for (one a
+    shard and layer: ``want``) and each shard's rows."""
+    from repro_torch.kernels import ops
+
+    def wrap(kind, counter, inner):
+        entry = tally.setdefault(kind, {"calls": 0, "want": 0, "counted": 0,
+                                        "rows": {}})
+
+        def run(global_ids, arg=None):
+            gids = np.asarray(global_ids, np.int64)
+            layers = len(arg) if kind == "push" else \
+                (tr.num_layers - 1 if arg is None else len(arg))
+            split = tr._split(gids)
+            before = ops.launch_counts()[counter]
+            out = inner(global_ids, arg)
+            entry["calls"] += 1
+            entry["counted"] += ops.launch_counts()[counter] - before
+            entry["want"] += len(split) * layers
+            for sh, pos in split:
+                entry["rows"].setdefault(sh, []).append(len(pos))
+            return out
+        return run
+
+    tr.gather_quantized = wrap("pull", "gather_quantize",
+                               tr.gather_quantized)
+    tr.write_quantized = wrap("push", "dequant_scatter", tr.write_quantized)
+    try:
+        yield tally
+    finally:
+        del tr.gather_quantized, tr.write_quantized
+
+
+def registered_gids(np, tr):
+    return np.unique(np.concatenate([np.nonzero(sv._gid2row >= 0)[0]
+                                     for sv in tr.shards]))
+
+
+def recombination_check(torch, np, tr, when: str) -> dict:
+    """Every registered gid, in a seeded permutation, read through the
+    sharded transport's fused int8 pull and its fp32 gather; the fp32
+    rows written into an in-process transport on the card, whose pull
+    must give the same int8 values and scales and rows, bit for bit.
+    One sharded pull runs under ``set_sync_debug_mode("error")``.  Pull
+    tallies are off meanwhile (these reads are not the path's)."""
+    from repro_torch.exchange import InProcessTransport
+
+    track, tr.track_pulls = tr.track_pulls, False
+    try:
+        gids = registered_gids(np, tr)
+        perm = np.random.default_rng(len(gids)).permutation(gids)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            # the class's method: a tally wrapped around the instance's
+            # counts the path's pulls only
+            pulled = type(tr).gather_quantized(tr, perm)
+        except RuntimeError as e:
+            raise SmokeFailure(f"the sharded pull waited on the card ({when}):"
+                               f" {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rows = tr.gather(perm)
+        one = InProcessTransport(tr.num_layers, tr.hidden, device=DEV)
+        one.register(perm)
+        one.write(perm, rows)
+        for (v, s), (ov, os_), r, o in zip(pulled, one.gather_quantized(perm),
+                                           rows, one.gather(perm)):
+            check(torch.equal(v, ov) and torch.equal(s, os_),
+                  f"sharded int8 pull differs from one server's ({when})")
+            check(torch.equal(r, o),
+                  f"sharded fp32 gather differs from one server's ({when})")
+    finally:
+        tr.track_pulls = track
+    return {"gids": len(perm), "sync_free": True, "bit_equal": True}
+
+
+def log_rows(logs) -> list:
+    return [{"bytes": lg.bytes, "rpcs": lg.rpcs, "seconds": lg.seconds}
+            for lg in logs]
+
+
+def sharded_kernel_cases(torch, np, trainer, tally: dict) -> dict:
+    """Rows 3 and 4 at the sharded path's per-shard shapes, timed as
+    ``kernel_phase`` times them: client 0's pull rows and push rows that
+    land on the shard holding most of them, on that shard's table."""
+    from repro_torch.kernels import exchange_fused as fused
+    from repro_torch.kernels import ops, ref
+
+    tr = trainer.exchange
+    sh = trainer.shards[0]
+    hidden = tr.hidden
+    out = {}
+    for kind, gids in (("pull", sh.pull_nodes), ("push", sh.push_nodes)):
+        split = tr._split(np.asarray(gids, np.int64))
+        s, pos = max(split, key=lambda sp: len(sp[1]))
+        server = tr.shards[s]
+        table = server._bufs[0]
+        rows = server._rows(np.asarray(gids, np.int64)[pos])
+        n = len(rows)
+        launches = tally[kind]["counted"]
+        per_shard = {f"shard_{k}": int(np.sum(v))
+                     for k, v in sorted(tally[kind]["rows"].items())}
+        if kind == "pull":
+            idx = ops.row_index(rows, server._cap, DEV, check=True)
+            got = fused.gather_quantize(table, idx)
+            want = ref.gather_quantize(table, idx)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  "gather_quantize differs from plain at the shard's shape")
+            out["pull_per_shard"] = with_bound({
+                "shape": (int(table.shape[0]), hidden, n), "shard": int(s),
+                "launches": launches, "rows_by_shard": per_shard,
+                "ms": time_ms(torch, lambda: fused.gather_quantize(table,
+                                                                   idx)),
+                "plain_ms": time_ms(torch, lambda: ref.gather_quantize(
+                    table, idx)),
+                "library_ms": None,
+                "device_ms": device_ms(torch, lambda: fused.gather_quantize(
+                    table, idx), "quantize_quads_kernel"),
+                "nbytes": n * 4 + n * hidden * 4 + n * hidden + n * 4})
+        else:
+            gen = torch.Generator(device=DEV).manual_seed(77)
+            pv, ps = ops.quantize_int8(torch.randn((n, hidden),
+                                                   generator=gen,
+                                                   device=DEV))
+            idx = ops.row_index(rows, server._cap, DEV, check=False)
+            t_k, t_p = table.clone(), table.clone()
+            fused.dequant_scatter_(t_k, idx, pv, ps)
+            ref.dequant_scatter_(t_p, idx, pv, ps)
+            check(torch.equal(t_k, t_p),
+                  "dequant_scatter differs from plain at the shard's shape")
+            out["push_per_shard"] = with_bound({
+                "shape": (int(table.shape[0]), hidden, n), "shard": int(s),
+                "launches": launches, "rows_by_shard": per_shard,
+                "ms": time_ms(torch, lambda: fused.dequant_scatter_(
+                    t_k, idx, pv, ps)),
+                "plain_ms": time_ms(torch, lambda: ref.dequant_scatter_(
+                    t_p, idx, pv, ps)),
+                "library_ms": None,
+                "device_ms": device_ms(torch, lambda: fused.dequant_scatter_(
+                    t_k, idx, pv, ps), "scatter_quads_kernel"),
+                "nbytes": n * 4 + n * hidden + n * 4 + n * hidden * 4})
+    torch.cuda.synchronize()
+    return out
+
+
+def optimizer_checks(torch, np, trainer, batches) -> dict:
+    """SGD (momentum 0.9) and Adafactor each take 16 steps of client 0
+    from the seeded initial parameters, and the loss on the first batch
+    must fall; then one step of SGD, AdamW and Adafactor on the card from
+    one set of leaves and gradients must equal the same step on the CPU
+    within 1e-6 relative (TF32 off)."""
+    from repro_torch.models.gnn import blocks_to_arrays, init_gnn, loss_fn
+    from repro_torch.optim import adafactor, adamw, sgd
+
+    g = trainer.g
+    feats, caches, labels = trainer.feats[0], trainer._caches[0], \
+        trainer.labels[0]
+    first = blocks_to_arrays(batches[0], DEV)
+
+    def fresh():
+        return init_gnn("graphconv", g.feat_dim, trainer.hidden,
+                        g.num_classes, trainer.L,
+                        generator=torch.Generator().manual_seed(0),
+                        device=DEV)
+
+    out = {}
+    saved = trainer.opt
+    try:
+        for name, opt in (("sgd", sgd(0.05, momentum=0.9)),
+                          ("adafactor", adafactor(1e-2))):
+            trainer.opt = opt
+            params = fresh()
+            with torch.no_grad():
+                before = float(loss_fn(params, first, feats, caches, labels))
+            params, _, losses = trainer.train_minibatches(
+                0, params, opt.init(params.leaves()), batches)
+            with torch.no_grad():
+                after = float(loss_fn(params, first, feats, caches, labels))
+            ls = [float(x) for x in losses]
+            check(all(np.isfinite(ls)) and after < before,
+                  f"{name}: the loss did not fall ({before} -> {after})")
+            out[name] = {"first_batch_loss": [before, after],
+                         "step_losses": ls}
+    finally:
+        trainer.opt = saved
+
+    params = fresh()
+    leaves = params.leaves()
+    grads = torch.autograd.grad(loss_fn(params, first, feats, caches,
+                                        labels), leaves)
+    errs = {}
+    for name, opt in (("sgd", sgd(0.05, momentum=0.9)),
+                      ("adamw", adamw(1e-2)), ("adafactor", adafactor(1e-2))):
+        card, _ = opt.step([p.detach() for p in leaves], list(grads),
+                           opt.init(leaves))
+        host = [p.detach().cpu() for p in leaves]
+        cpu, _ = opt.step(host, [x.cpu() for x in grads], opt.init(host))
+        worst = 0.0
+        for a, b in zip(card, cpu):
+            a = a.cpu()
+            check(bool(torch.all((a - b).abs() <= 1e-6 * b.abs() + 1e-8)),
+                  f"{name}: a step on the card is off the CPU's by "
+                  f"{max_err(a, b)}")
+            worst = max(worst, max_err(a, b))
+        errs[name] = worst
+    out["card_vs_cpu_max_abs_err"] = errs
+    print(f"optimizers on the card: {json.dumps(out)}", flush=True)
+    return out
+
+
+def trace_overhead(torch, np, trainer, batches) -> dict:
+    """Client 0's steps over the same pre-sampled batches with the trace
+    disabled and enabled, in turns (off, on, on, off, ...), each turn one
+    epoch span around ``train_minibatches``: ms a step for each side."""
+    from repro_torch.obsv.trace import TRACE
+
+    was = TRACE.enabled
+    per = {False: [], True: []}
+    params = copy.deepcopy(trainer.model)
+    state = trainer.opt.init(params.leaves())
+    try:
+        for on in (False, True, True, False) * 2:
+            TRACE.enabled = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with TRACE.span("client.train_epoch",
+                            args={"client": 0, "epoch": 0}):
+                trainer.train_minibatches(0, params, state, batches)
+                torch.cuda.synchronize()
+            per[on].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    finally:
+        TRACE.enabled = was
+    return {"steps_each": len(batches) * len(per[False]),
+            "off_ms_per_step": per[False], "on_ms_per_step": per[True]}
+
+
+def sharded_train_phase(torch, np, g, part) -> tuple[dict, dict, list]:
+    """The sharded path through the trainer's own code: construct (OPG +
+    int8 over 4 shards, pull-frequency placement, AdamW, 2 epochs a
+    round), ``pretrain_round``, ``run_round(0)`` and ``run_round(1)``
+    (which rebalances before its pulls), each client's epochs cut to
+    SHARDED_STEPS minibatches.  Tracing is on.  Returns the measurements,
+    the launches of the path and the per-shard kernel cases."""
+    import itertools
+
+    from repro_torch.core import federated as fed
+    from repro_torch.core.cost_model import NetworkModel
+    from repro_torch.exchange import ShardedTransport, get_codec
+    from repro_torch.gnnserve import build_serving
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.obsv.metrics import REGISTRY
+    from repro_torch.obsv.trace import TRACE
+    from repro_torch.optim import adamw
+
+    clients, rounds = 4, 2
+    TRACE.clear()
+    TRACE.enable()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_gnn("graphconv", g.feat_dim, 32, g.num_classes, 3,
+                     generator=torch.Generator().manual_seed(0), device=DEV)
+    trainer = fed.FederatedGNNTrainer(
+        g, clients, sharded_strategy(), part=part, model=model,
+        optimizer=adamw(1e-2), epochs_per_round=SHARDED_EPOCHS, device=DEV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tr = trainer.exchange
+    check(isinstance(tr, ShardedTransport) and tr.num_shards == SHARDS
+          and tr.track_pulls, f"the trainer built {type(tr).__name__}")
+
+    # each client's epoch yields SHARDED_STEPS minibatches, each timed
+    sample_ms: list = []
+
+    def cut(inner):
+        def epoch():
+            it = inner()
+            for _ in range(SHARDED_STEPS):
+                t = time.perf_counter()
+                mb = next(it)
+                sample_ms.append((time.perf_counter() - t) * 1e3)
+                yield mb
+        return epoch
+    for smp in trainer.samplers:
+        smp.epoch = cut(smp.epoch)
+    # every step's loss, by client, for the check that they fall
+    step_losses: dict = {ci: [] for ci in range(clients)}
+    inner_train = trainer.train_minibatches
+
+    def train_minibatches(ci, params, opt_state, batches):
+        out = inner_train(ci, params, opt_state, batches)
+        step_losses[ci] += out[2]
+        return out
+    trainer.train_minibatches = train_minibatches
+
+    # per step: the block copy (synchronised), then forward + backward +
+    # AdamW up to the optimizer step's end (CUDA events), host ms
+    copy_ms, compute_ms, step_ms, copied, started = [], [], [], [], []
+    inner_copy = fed.blocks_to_arrays
+
+    def copy_blocks(mb, device):
+        started.append(time.perf_counter())
+        out = inner_copy(mb, device)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - started[-1]) * 1e3)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        copied.append(ev)
+        return out
+    inner_step = trainer.opt.step
+
+    def opt_step(params, grads, state):
+        out = inner_step(params, grads, state)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        compute_ms.append(copied[-1].elapsed_time(end))
+        step_ms.append((time.perf_counter() - started[-1]) * 1e3)
+        return out
+    trainer.opt = dataclasses.replace(trainer.opt, step=opt_step)
+
+    tally: dict = {}
+    launches: dict = {}
+    fill_s: list = []
+    push_s: list = []
+    agg_s: list = []
+    rebalance: list = []
+    stats = []
+    logs_by_round = []
+    sync = torch.cuda.synchronize
+    inner_rebalance = tr.rebalance_by_pulls
+
+    def rebalanced():
+        """The path's rebalance, with every registered gid read before
+        and after (fp32, tallies off): rows move, values do not."""
+        gids = registered_gids(np, tr)
+        tr.track_pulls = False
+        before = tr.gather(gids)
+        tr.track_pulls = True
+        t = time.perf_counter()
+        placement = inner_rebalance()
+        sync()
+        rebalance.append(time.perf_counter() - t)
+        tr.track_pulls = False
+        after = tr.gather(gids)
+        tr.track_pulls = True
+        check(placement is not None, "no pull was tallied before round 1")
+        check(all(torch.equal(a, b) for a, b in zip(before, after)),
+              "the rebalance changed a row's values")
+        check(registered_gids(np, tr).tolist() == gids.tolist(),
+              "the rebalance lost or invented a row")
+        return placement
+    tr.rebalance_by_pulls = rebalanced
+
+    checks = {}
+    fed.blocks_to_arrays = copy_blocks
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(shard_launch_tally(np, tr, tally))
+            for name, log in (("_fill_cache", fill_s),
+                              ("_compute_push", push_s),
+                              ("aggregate", agg_s)):
+                stack.enter_context(timed(trainer, name, log, sync=sync))
+            t0 = time.perf_counter()
+            trainer.pretrain_round()
+            sync()
+            pretrain_s = time.perf_counter() - t0
+            cum = 0.0
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                st = trainer.run_round(r, cum)
+                sync()
+                cum = st.cum_time
+                stats.append((st, time.perf_counter() - t0))
+                logs_by_round.append(log_rows(tr.shard_logs))
+                counts = ops.launch_counts()
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                # launches of the checks below are not the path's
+                checks[f"after_round_{r}"] = recombination_check(
+                    torch, np, tr, f"after round {r}")
+                ops.reset_launch_counts()
+    finally:
+        fed.blocks_to_arrays = inner_copy
+        trainer.opt = dataclasses.replace(trainer.opt, step=inner_step)
+        del tr.rebalance_by_pulls, trainer.train_minibatches
+        for smp in trainer.samplers:
+            del smp.epoch
+    events = list(TRACE.events)
+    spans: dict = {}
+    for name, _, _, _, dur, _ in events:
+        n, secs = spans.get(name, (0, 0.0))
+        spans[name] = (n + 1, secs + dur)
+    want_spans = {"client.pull": clients * rounds,
+                  "client.train_epoch": clients * SHARDED_EPOCHS * rounds,
+                  "client.push_compute": clients * rounds,
+                  "round.aggregate": rounds}
+    for name, n in want_spans.items():
+        check(spans.get(name, (0,))[0] == n,
+              f"span {name}: {spans.get(name, (0,))[0]} recorded, {n} due")
+    trace_path = pathlib.Path(__file__).resolve().parent / "build" \
+        / "sharded_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    TRACE.write_chrome_trace(str(trace_path))
+    TRACE.disable()
+
+    for s_, _ in stats:
+        check(np.isfinite(s_.train_loss), f"round {s_.round_idx}: loss "
+                                          f"{s_.train_loss}")
+        check(np.isfinite(s_.accuracy) and 0.0 <= s_.accuracy <= 1.0,
+              f"round {s_.round_idx}: accuracy {s_.accuracy}")
+    per_client = SHARDED_STEPS * SHARDED_EPOCHS * rounds
+    for ci, ls in step_losses.items():
+        ls = [float(x) for x in ls]
+        check(len(ls) == per_client and all(np.isfinite(ls)),
+              f"client {ci}: {len(ls)} losses of {per_client}, or not finite")
+        first, last = np.mean(ls[:8]), np.mean(ls[-8:])
+        check(last < first, f"client {ci}: loss did not fall "
+                            f"({first:.4f} -> {last:.4f})")
+        step_losses[ci] = (float(first), float(last))
+    for name in TRAIN_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} never launched on the sharded path")
+    for kind, counter in (("pull", "gather_quantize"),
+                          ("push", "dequant_scatter")):
+        t = tally[kind]
+        check(t["counted"] == t["want"] == launches[counter],
+              f"sharded {kind}: {launches[counter]} {counter} launches, "
+              f"{t['counted']} in {t['calls']} calls, {t['want']} due to "
+              "their non-empty shards")
+
+    # the placement: pull mass of the fullest shard, hash against LPT
+    counts = tr._pull_counts
+    hot = np.nonzero(counts > 0)[0]
+    lpt = np.bincount(tr._placement[hot], weights=counts[hot],
+                      minlength=SHARDS)
+    hashed = np.bincount(hot % SHARDS, weights=counts[hot], minlength=SHARDS)
+    check(lpt.max() <= hashed.max(),
+          f"LPT's fullest shard holds {lpt.max()} pulls, hash's "
+          f"{hashed.max()}")
+    # modelled pull time: 4 shards against one server, at the same sets
+    net = NetworkModel()
+    bps = get_codec("int8").bytes_per_scalar(tr.hidden)
+    pull_model = [{"client": ci, "rows": len(sh.pull_nodes),
+                   "one_server_s": net.transfer_time(len(sh.pull_nodes), 32,
+                                                     2, bytes_per_scalar=bps),
+                   "sharded_s": tr.transfer_time(sh.pull_nodes, 2, bps)}
+                  for ci, sh in enumerate(trainer.shards)]
+
+    # the sharded export serves; the plane's metrics move by its stats
+    t0 = time.perf_counter()
+    bundle = trainer.export_for_serving()
+    sync()
+    export_s = time.perf_counter() - t0
+    plane = build_serving(bundle, cache_rows=100_000, serve_fanout=10,
+                          batch_size=64, depth_schedule=[1, 3], device=DEV)
+    vids, thrs = zipf_queries(np, g.num_vertices, SHARDED_QUERIES, 31)
+    m0 = REGISTRY.snapshot("pt_gnnserve.")
+    t0 = time.perf_counter()
+    rids = [plane.submit(int(v), float(t)) for v, t in zip(vids, thrs)]
+    served = {r.rid: r for r in plane.drain()}
+    sync()
+    serve_s = time.perf_counter() - t0
+    moved = REGISTRY.delta(REGISTRY.snapshot("pt_gnnserve."), m0)
+    check(sorted(served) == sorted(rids), "sharded serving: requests lost")
+    pst = plane.stats()
+    want_metrics = {"served": pst["served"], "forwards": pst["forwards"],
+                    **{f"cache.{k}": pst["cache"][k] for k in (
+                        "hits", "misses", "stale_refreshes", "evictions")}}
+    got_metrics = {k: moved.get(f"pt_gnnserve.{k}", 0) for k in want_metrics}
+    check(got_metrics == want_metrics,
+          f"pt_gnnserve metrics {got_metrics} != the plane's {want_metrics}")
+    full = [(rid, int(v)) for rid, v, t in zip(rids, vids, thrs) if t == 1.0]
+    offline = offline_ref(np, plane, [v for _, v in full])
+    bad = [rid for rid, v in full if served[rid].pred != offline[v]]
+    check(not bad, f"sharded serving: {len(bad)} threshold-1.0 answers "
+                   "differ from offline_predict")
+
+    kernels = sharded_kernel_cases(torch, np, trainer, tally)
+    # 16 minibatches of client 0, sampled beforehand, for the last checks
+    it = trainer.samplers[0].epoch()
+    batches = list(itertools.islice(it, SHARDED_STEPS))
+    overhead = trace_overhead(torch, np, trainer, batches)
+    opts = optimizer_checks(torch, np, trainer, batches)
+
+    n_steps = len(step_ms)
+    steps = [a + b for a, b in zip(sample_ms, step_ms)]
+    out = {
+        "strategy": sharded_strategy().describe(),
+        "optimizer": trainer.opt.name,
+        "setup_s": setup_s, "pretrain_round_s": pretrain_s,
+        "rounds": [{"round": s_.round_idx, "wall_s": w,
+                    "accuracy": s_.accuracy, "train_loss": s_.train_loss,
+                    "modelled_pull_s": s_.phases.pull,
+                    "modelled_round_s": s_.round_time,
+                    "embeddings_stored": s_.embeddings_stored}
+                   for s_, w in stats],
+        "steps": n_steps,
+        "steps_per_s": n_steps / sum(steps) * 1e3,
+        "step_ms": percentiles(np, steps),
+        "sample_ms": percentiles(np, sample_ms),
+        "copy_ms": percentiles(np, copy_ms),
+        "fwd_bwd_adamw_ms": percentiles(np, compute_ms),
+        "fill_s": fill_s, "push_compute_s": push_s, "aggregate_s": agg_s,
+        "rebalance_s": rebalance,
+        "loss_first8_last8": step_losses,
+        "shard_logs_round_0": logs_by_round[0],
+        "shard_logs_round_1_alone": [
+            {k: b[k] - a[k] for k in b}
+            for a, b in zip(logs_by_round[0], logs_by_round[1])],
+        "fullest_shard_pulls": {"hash": float(hashed.max()),
+                                "lpt": float(lpt.max()),
+                                "hash_by_shard": hashed.tolist(),
+                                "lpt_by_shard": lpt.tolist()},
+        "modelled_pull_one_server_vs_sharded": pull_model,
+        "tally": {k: {kk: vv for kk, vv in v.items() if kk != "rows"}
+                  for k, v in tally.items()},
+        "recombination": checks,
+        "spans": {k: {"count": n, "seconds": secs}
+                  for k, (n, secs) in sorted(spans.items())},
+        "trace_file": str(trace_path.relative_to(trace_path.parents[1])),
+        "export_s": export_s, "queries": SHARDED_QUERIES,
+        "serve_s": serve_s, "queries_per_s": SHARDED_QUERIES / serve_s,
+        "metrics_delta": got_metrics, "offline_checked": len(full),
+        "trace_overhead": overhead, "optimizers": opts,
+        "memory_bytes": tr.memory_bytes(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return out, launches, kernels
+
 # -- phases 10-13: LM decode serving ------------------------------------------
 
 def swa_inputs(torch, np, B, T, Hkv, G, dh, seed, dtype, *,
@@ -1854,6 +2438,19 @@ def main() -> int:
     report += rows
     del trainer
     train_reference_phase(torch, np)
+    t0 = time.perf_counter()
+    with timed(agg_mod, "csr_from_edges", glue), \
+            timed(agg_mod, "transpose_csr", glue):
+        sharded, sharded_counts, sharded_cases = sharded_train_phase(
+            torch, np, g, part)
+    check(not glue, f"the CSR glue ran {len(glue)} times on the sharded "
+                    "training path")
+    sharded["phase_s"] = time.perf_counter() - t0
+    print("sharded training: " + json.dumps(sharded), flush=True)
+    for name, key in (("gather_quantize", "pull_per_shard"),
+                      ("dequant_scatter", "push_per_shard")):
+        next(r for r in report if r["name"] == name)[key] = \
+            sharded_cases[key]
     report += swa_kernel_phase(torch, np)
     lm_res, lm_counts, cfg, params = lm_decode_phase(torch, np)
     lm_batcher_phase(torch, np, cfg, params)
@@ -1865,13 +2462,16 @@ def main() -> int:
         row["launches_train"] = train_counts.get(name, 0)
         row["launches_pull"] = pull_counts.get(name, 0)
         row["launches_lm"] = lm_counts.get(name, 0)
+        row["launches_sharded"] = sharded_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
-                           + row["launches_pull"] + row["launches_lm"])
+                           + row["launches_pull"] + row["launches_lm"]
+                           + row["launches_sharded"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
           f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
-          f"{json.dumps(lm_counts)}", flush=True)
+          f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)}",
+          flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

@@ -97,10 +97,26 @@ class EmbeddingServer:
         self._gid2row[new] = base + np.arange(len(new), dtype=np.int64)
         self._next_row = base + len(new)
 
+    def forget(self, global_ids: np.ndarray) -> None:
+        """Drop registrations (shard rebalancing moved the rows away).
+        Row slots are not recycled: registration is append-only, so a
+        forget leaves a hole that only costs capacity, never correctness
+        (``register`` hands out fresh rows past it, whose versions start
+        at 0 as a new row's do)."""
+        gids = np.unique(np.asarray(global_ids, np.int64))
+        gids = gids[(gids >= 0) & (gids < len(self._gid2row))]
+        self._gid2row[gids] = -1
+
     @property
     def num_embeddings_stored(self) -> int:
         """Vertices registered × (L-1) layer tables (Fig. 2a marker)."""
         return int((self._gid2row >= 0).sum()) * (self.L - 1)
+
+    def memory_bytes(self) -> int:
+        """Actual allocation, including capacity-doubling headroom (up to
+        ~2× the registered rows right after a growth event) and the holes
+        that :meth:`forget` leaves."""
+        return sum(buf.numel() * buf.element_size() for buf in self._bufs)
 
     def _rows(self, global_ids: np.ndarray) -> np.ndarray:
         gids = np.asarray(global_ids, np.int64)
@@ -125,7 +141,7 @@ class EmbeddingServer:
             "before write/gather")
 
     def _index(self, rows: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(rows).to(self.device)
+        return ops.host_to_device(rows, self.device)
 
     def _empty(self, sel) -> list[torch.Tensor]:
         return [torch.zeros((0, self.hidden), dtype=torch.float32,

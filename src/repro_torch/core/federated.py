@@ -18,11 +18,19 @@ The publish half is also usable without a trainer, as functions over
   export_for_serving  — publish every owned vertex's h^1..h^{L-1} and
                         return the bundle ``gnnserve.build_serving`` takes
 
-:class:`FederatedGNNTrainer` runs the in-process, single-server,
-synchronous configurations; its constructor refuses the rest (sharded or
-TCP transports, asynchronous aggregation, weight codecs, participation
-sampling, graph growth, prebuilt shards, shard-local workers).  It keeps
-per-instance timings and records no trace spans.  Its models are
+:class:`FederatedGNNTrainer` runs the in-process configurations: one
+embedding server or S hashed shards (``num_server_shards``, with
+``shard_placement="pull_frequency"`` re-placing rows by observed pulls
+at ``rebalance_round``), each shard behind its own modelled link
+(``shard_nets``).  Its constructor refuses what needs the TCP wire, the
+fedsvc worker, the graph store or graph growth (``ROADMAP.md`` Queue A
+items 3–5).  The coordinator's fields of a Strategy (``aggregation``,
+``weight_codec``, ``sample_frac``) are accepted and not read here, as
+in the JAX package: its fedsvc coordinator and workers read them, and
+they build in-process trainers from the same Strategy.  It records the
+JAX trainer's trace spans (``client.pull``, ``client.train_epoch``,
+``client.push_compute``, ``round.aggregate``) on
+:data:`repro_torch.obsv.trace.TRACE`.  Its models are
 :class:`repro_torch.models.gnn.GNN` modules; FedAvg runs over their
 leaves in the JAX package's order, so either trainer can start from the
 other's parameters.
@@ -38,7 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.exchange import ExchangeClient, Transport, make_transport
+from repro_torch.exchange import (ExchangeClient, ShardedTransport,
+                                  Transport, make_transport)
 from repro_torch.exchange.client import PushPlan
 from repro_torch.fedsvc.aggregation import fedavg_leaves
 from repro_torch.graphs.partition import (ClientShard, bfs_partition,
@@ -46,6 +55,7 @@ from repro_torch.graphs.partition import (ClientShard, bfs_partition,
 from repro_torch.graphs.sampler import MiniBatch, NeighborSampler
 from repro_torch.models.gnn import (GNN, blocks_to_arrays, init_gnn, loss_fn,
                                     propagate_arrays, shard_to_arrays)
+from repro_torch.obsv.trace import TRACE
 from repro_torch.optim import Optimizer, adam
 
 from .cost_model import NetworkModel
@@ -248,24 +258,23 @@ def eval_arrays_for(g, sel: np.ndarray, device) -> dict:
                             g.features[sel], device)
 
 
+#: the trainer arguments the port does not take yet, by the
+#: ``ROADMAP.md`` Queue A item that ports them
+_UNPORTED_ITEM = {"transport_addrs": 3, "only_clients": 3, "shards": 4,
+                  "growth": 5}
+
+
 def _refuse_unported(st: Strategy, given: dict) -> None:
-    """Raise for each configuration the port's trainer does not run."""
-    bad = [f"{name}=..." for name, v in given.items() if v is not None]
-    if st.transport not in ("auto", "inprocess"):
-        bad.append(f"transport={st.transport!r}")
-    if st.num_server_shards > 1:
-        bad.append(f"num_server_shards={st.num_server_shards}")
-    if st.shard_placement != "hash":
-        bad.append(f"shard_placement={st.shard_placement!r}")
-    if st.aggregation != "sync":
-        bad.append(f"aggregation={st.aggregation!r}")
-    if st.weight_codec is not None:
-        bad.append(f"weight_codec={st.weight_codec!r}")
-    if st.sample_frac is not None:
-        bad.append(f"sample_frac={st.sample_frac}")
+    """Raise for each configuration the port's trainer does not run,
+    naming the ``ROADMAP.md`` Queue A item that ports it."""
+    bad = [f"{name}=... (item {_UNPORTED_ITEM[name]})"
+           for name, v in given.items() if v is not None]
+    if st.transport == "tcp":
+        bad.append("transport='tcp' (item 3)")
     if bad:
         raise NotImplementedError(
-            "not ported to the PyTorch trainer yet: " + ", ".join(bad))
+            "not ported to the PyTorch trainer yet (ROADMAP.md Queue A): "
+            + ", ".join(bad))
 
 
 class FederatedGNNTrainer:
@@ -284,6 +293,7 @@ class FederatedGNNTrainer:
         lr: float = 1e-2,
         optimizer: Optimizer | None = None,
         net: NetworkModel | None = None,
+        shard_nets: list[NetworkModel] | None = None,
         seed: int = 0,
         part: np.ndarray | None = None,
         eval_max_edges: int = 4_000_000,
@@ -316,6 +326,9 @@ class FederatedGNNTrainer:
         self.lr = lr
         self.opt = optimizer or adam(lr)
         self.net = net or NetworkModel()
+        # heterogeneous per-shard links (ShardedTransport); default: the
+        # trainer-wide NetworkModel replicated per shard
+        self.shard_nets = shard_nets
         self.seed = seed
         self.eval_max_edges = eval_max_edges
         self.device = torch.device(device)
@@ -341,9 +354,25 @@ class FederatedGNNTrainer:
         st = self.strategy
         self.owned = list(range(self.k))
         self._build_shard_state()
+        if st.shard_placement not in ("hash", "pull_frequency"):
+            raise ValueError(
+                f"unknown shard_placement {st.shard_placement!r}; "
+                "expected hash | pull_frequency")
         if st.use_embeddings:
-            self.exchange = make_transport(self.L, self.hidden, net=self.net,
-                                           device=self.device)
+            self.exchange = make_transport(
+                self.L, self.hidden, kind=st.transport,
+                num_shards=st.num_server_shards,
+                nets=self.shard_nets if self.shard_nets is not None
+                else self.net, device=self.device)
+            if st.shard_placement == "pull_frequency":
+                if not isinstance(self.exchange, ShardedTransport):
+                    raise ValueError(
+                        "shard_placement='pull_frequency' needs the "
+                        "sharded in-process transport (num_server_shards "
+                        "> 1, transport != 'tcp'): "
+                        f"{type(self.exchange).__name__} cannot migrate "
+                        "rows")
+                self.exchange.track_pulls = True
             self.ex_clients: list[ExchangeClient | None] = [
                 ExchangeClient(self.exchange, st.codec,
                                delta_threshold=st.delta_threshold,
@@ -478,7 +507,9 @@ class FederatedGNNTrainer:
         sh = self.shards[ci]
         if self.exchange is None or len(sh.pull_nodes) == 0:
             return
-        self._caches[ci] = fill_cache(self.ex_clients[ci], sh, self.L)
+        with TRACE.span("client.pull", args={"client": ci,
+                                             "rows": len(sh.pull_nodes)}):
+            self._caches[ci] = fill_cache(self.ex_clients[ci], sh, self.L)
 
     def _pull_time(self, ci: int, minibatches: list[MiniBatch]
                    ) -> tuple[float, float, list[int]]:
@@ -518,13 +549,15 @@ class FederatedGNNTrainer:
         sh = self.shards[ci]
         if self.exchange is None or len(sh.push_nodes) == 0:
             return None, 0.0, 0.0
-        t0 = time.perf_counter()
-        outs = params.full_propagate(self.shard_arrays[ci], self._caches[ci])
-        self._sync()
-        t_compute = time.perf_counter() - t0
-        rows = torch.from_numpy(self.push_rows[ci]).to(self.device)
-        plan = self.ex_clients[ci].plan_push(
-            sh.push_nodes, [outs[l][rows] for l in range(self.L - 1)])
+        with TRACE.span("client.push_compute", args={"client": ci}):
+            t0 = time.perf_counter()
+            outs = params.full_propagate(self.shard_arrays[ci],
+                                         self._caches[ci])
+            self._sync()
+            t_compute = time.perf_counter() - t0
+            rows = torch.from_numpy(self.push_rows[ci]).to(self.device)
+            plan = self.ex_clients[ci].plan_push(
+                sh.push_nodes, [outs[l][rows] for l in range(self.L - 1)])
         return plan, t_compute, plan.transfer_time
 
     # -- lifecycle ---------------------------------------------------------------
@@ -607,10 +640,12 @@ class FederatedGNNTrainer:
         losses: list[torch.Tensor] = []
         for e, batches in enumerate(epochs_batches, start=1):
             t0 = time.perf_counter()
-            params, opt_state, ep_losses = self.train_minibatches(
-                ci, params, opt_state, batches)
-            losses += ep_losses
-            self._sync()
+            with TRACE.span("client.train_epoch",
+                            args={"client": ci, "epoch": e}):
+                params, opt_state, ep_losses = self.train_minibatches(
+                    ci, params, opt_state, batches)
+                losses += ep_losses
+                self._sync()
             t_train += time.perf_counter() - t0
             if st.overlap_push and e == self.epochs - 1:
                 # §4.2: stale push computed from the epoch-(ε−1) model
@@ -640,7 +675,16 @@ class FederatedGNNTrainer:
         return self.evaluate()
 
     def run_round(self, round_idx: int, cum_time: float) -> RoundStats:
+        TRACE.set_context(round=round_idx)
         self.set_round_tau(round_idx)
+        # pull-frequency shard rebalancing: after the first round's pulls
+        # are logged, re-place hot rows across the embedding-server shards
+        # by observed pull counts (LPT); numerics are untouched, only the
+        # per-shard time and byte ledgers move
+        st = self.strategy
+        if st.use_embeddings and st.shard_placement == "pull_frequency" \
+                and round_idx == st.rebalance_round:
+            self.exchange.rebalance_by_pulls()
         phases = PhaseTimes()
         all_rpc_sizes: list[int] = []
         results = [self.client_round(ci) for ci in range(self.k)]
@@ -656,7 +700,8 @@ class FederatedGNNTrainer:
             if res.push_plan is not None:
                 self.ex_clients[res.client_id].apply_push(res.push_plan)
         t0 = time.perf_counter()
-        acc = self.aggregate(results)
+        with TRACE.span("round.aggregate", args={"round": round_idx}):
+            acc = self.aggregate(results)
         t_agg = time.perf_counter() - t0 \
             + 2 * self.net.model_transfer_time(self._num_params())
         phases.agg = t_agg

@@ -1,8 +1,9 @@
 """Declarative strategy configurations (paper §5.2 notation).
 
 Copy of ``repro/core/strategies.py``.  The port's trainer runs the
-in-process, single-server, synchronous subset of these knobs and refuses
-the rest (see :class:`repro_torch.core.federated.FederatedGNNTrainer`).
+in-process knobs, one embedding server or sharded, and refuses
+``transport="tcp"`` (see
+:class:`repro_torch.core.federated.FederatedGNNTrainer`).
 
 D    — default federated GNN, no embedding exchange (P_0).
 E    — EmbC baseline: full expansion, blocking pull/push each round.

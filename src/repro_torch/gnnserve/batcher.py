@@ -1,5 +1,6 @@
 """Continuous batcher for GNN vertex queries (copy of
-``repro/gnnserve/batcher.py`` without the process-wide metrics).
+``repro/gnnserve/batcher.py``; its metrics carry the port's ``pt_``
+prefix, its span the JAX name).
 
 The GNN analog of ``core/serving.py``'s lane-based ContinuousBatcher:
 queries arrive one at a time, the batcher coalesces them into
@@ -21,6 +22,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+
+from repro_torch.obsv.metrics import REGISTRY
+from repro_torch.obsv.trace import TRACE
+
+_SERVED = REGISTRY.counter("pt_gnnserve.served")
+_QWAIT = REGISTRY.histogram("pt_gnnserve.queue_wait_s")
+_OCCUPANCY = REGISTRY.histogram("pt_gnnserve.lane_occupancy",
+                                lo=1.0, hi=4096.0, factor=2.0)
 
 
 @dataclasses.dataclass
@@ -75,11 +84,22 @@ class QueryBatcher:
         q = self._queues[depth]
         if not q:
             return []
+        # depth-lane occupancy at pick time: how full the chosen lane
+        # was, and a live per-lane depth gauge for scrapes
+        _OCCUPANCY.observe(len(q))
+        for d, lane in self._queues.items():
+            # bounded by model depth (≤ a handful of lanes)
+            REGISTRY.gauge(f"pt_gnnserve.lane_depth.d{d}").set(len(lane))  # repro-lint: disable=TL001
         take = [q.popleft() for _ in range(min(self.batch_size, len(q)))]
+        t_step = time.perf_counter()
+        for t in take:
+            _QWAIT.observe(t_step - t[4])     # submit → batch pick
         seeds = [t[1] for t in take]
         thrs = [t[3] for t in take]
-        preds, confs, depths = self.engine.predict_at_depth(seeds, thrs,
-                                                            depth)
+        with TRACE.span("gnnserve.forward_batch",
+                        args={"depth": depth, "n": len(take)}):
+            preds, confs, depths = self.engine.predict_at_depth(
+                seeds, thrs, depth)
         now = time.perf_counter()
         out = []
         sched = self.engine.depth_schedule
@@ -91,6 +111,9 @@ class QueryBatcher:
                 self.served += 1
                 self.exits_by_depth[depth] = \
                     self.exits_by_depth.get(depth, 0) + 1
+                _SERVED.inc()
+                # bounded by model depth (≤ a handful of exit lanes)
+                REGISTRY.counter(f"pt_gnnserve.exits.d{depth}").inc()  # repro-lint: disable=TL001
                 out.append(res)
             else:                    # escalate to the next schedule depth
                 nxt = sched[sched.index(depth) + 1]

@@ -23,6 +23,14 @@ import collections
 import numpy as np
 
 from repro_torch.exchange.client import ExchangeClient
+from repro_torch.obsv.metrics import REGISTRY
+
+# process-wide mirrors of the per-cache attribute counters; tests that
+# build several caches keep reading the exact per-instance attributes
+_HITS = REGISTRY.counter("pt_gnnserve.cache.hits")
+_MISSES = REGISTRY.counter("pt_gnnserve.cache.misses")
+_STALE = REGISTRY.counter("pt_gnnserve.cache.stale_refreshes")
+_EVICTIONS = REGISTRY.counter("pt_gnnserve.cache.evictions")
 
 
 class HotEmbeddingCache:
@@ -95,6 +103,9 @@ class HotEmbeddingCache:
         self.hits += n_hits
         self.misses += n_miss
         self.stale_refreshes += n_stale
+        _HITS.inc(n_hits)
+        _MISSES.inc(n_miss)
+        _STALE.inc(n_stale)
         for j, i in enumerate(stale):
             self._rows[keys[i]] = [int(ver[i]), rows[j].copy()]
         for k in keys:
@@ -102,4 +113,5 @@ class HotEmbeddingCache:
         while len(self._rows) > self.capacity_rows:
             self._rows.popitem(last=False)
             self.evictions += 1
+            _EVICTIONS.inc()
         return out, ver

@@ -27,8 +27,11 @@ import torch
 
 from repro_torch.graphs.sampler import Block, _pad_to, _round_up
 from repro_torch.models.gnn import GNN, block_arrays
+from repro_torch.obsv.metrics import REGISTRY
 
 from .cache import HotEmbeddingCache
+
+_FORWARDS = REGISTRY.counter("pt_gnnserve.forwards")
 
 
 class ShardServeEngine:
@@ -202,6 +205,7 @@ class ShardServeEngine:
             self._refresh_slots(l, slots)
         batch = self._batch_arrays(plan)
         self.forwards += 1
+        _FORWARDS.inc()
         if d == L:
             logits = self.model(batch, self.features, self._ctbl)
         else:

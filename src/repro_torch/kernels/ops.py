@@ -39,6 +39,17 @@ def reset_launch_counts() -> None:
         _build.LAUNCHES[k] = 0
 
 
+def host_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To the card it goes
+    through page-locked memory without waiting for the copy, so a pull
+    or a push that builds its indices this way never syncs the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def row_index(rows, R: int, device, *, check: bool) -> torch.Tensor:
     """Host row ids → an int32 index tensor on ``device``.  ``check``
     demands every id in [0, R) (gathers); without it ids outside the
@@ -49,8 +60,7 @@ def row_index(rows, R: int, device, *, check: bool) -> torch.Tensor:
     if check and len(rows) and (rows.min() < 0 or rows.max() >= R):
         raise IndexError(f"row ids [{rows.min()}, {rows.max()}] outside a "
                          f"table of {R} rows")
-    return torch.from_numpy(np.clip(rows, -1, R).astype(np.int32)) \
-        .to(device)
+    return host_to_device(np.clip(rows, -1, R).astype(np.int32), device)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,8 @@
-"""Functional optimizers of the port (``repro.optim``'s Adam)."""
+"""Functional optimizers of the port (``repro.optim``'s SGD, Adam,
+AdamW and Adafactor)."""
 
-from .optimizer import AdamState, Optimizer, adam
+from .optimizer import (AdafactorState, AdamState, Optimizer, adafactor,
+                        adam, adamw, sgd)
 
-__all__ = ["AdamState", "Optimizer", "adam"]
+__all__ = ["AdafactorState", "AdamState", "Optimizer", "sgd", "adam",
+           "adamw", "adafactor"]

@@ -37,7 +37,7 @@ from repro_torch.core.pruning import top_fraction
 from repro_torch.core.serving import ContinuousBatcher
 from repro_torch.core.strategies import default_strategies
 from repro_torch.data import synthetic_request_stream
-from repro_torch.exchange import make_transport
+from repro_torch.exchange import ShardedTransport, make_transport
 from repro_torch.gnnserve import build_serving
 from repro_torch.graphs import bfs_partition, make_client_shards, make_graph
 from repro_torch.kernels import gnn_aggregate as agg_mod
@@ -594,3 +594,56 @@ def test_full_width_batcher_on_the_card(cuda):
     assert ops.launch_counts()["swa_attention_decode"] == \
         bat.steps * cfg.num_layers
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("num_shards,empty", [(1, None), (3, None), (4, 2)])
+def test_sharded_fused_exchange_equals_one_server(cuda, num_shards, empty):
+    """The sharded transport's fused int8 pull (each shard's gather +
+    encode, recombined in id order on the card) and push apply (each
+    shard's payload rows selected on the card, then decode + scatter)
+    equal one in-process server's bit for bit, at 1, 3 and 4 shards (at
+    4 one shard owns no id); a pull makes one gather launch a non-empty
+    shard and layer, and runs with no host sync."""
+    rng = np.random.default_rng(num_shards)
+    pool = np.arange(6000)
+    if empty is not None:
+        pool = pool[pool % num_shards != empty]
+    gids = rng.choice(pool, 2500, replace=False)
+    one = make_transport(3, 32, device="cuda")
+    many = make_transport(3, 32, kind="sharded", num_shards=num_shards,
+                          device="cuda")
+    assert isinstance(many, ShardedTransport)
+    gen = torch.Generator(device="cuda").manual_seed(num_shards)
+    vals = [torch.randn((len(gids), 32), generator=gen, device="cuda") * 3
+            for _ in range(2)]
+    for t in (one, many):
+        t.register(gids)
+        t.write(gids, vals)
+    ask = rng.choice(gids, 1800)               # repeats and any order
+    busy = len(many._split(ask))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = many.gather_quantized(ask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.launch_counts()["gather_quantize"] == busy * 2
+    for (a, b), (c, d) in zip(one.gather_quantized(ask), got):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    push = rng.permutation(gids)[:1500]
+    payloads = [ops.quantize_int8(torch.randn((len(push), 32), generator=gen,
+                                              device="cuda"))
+                for _ in range(2)]
+    ops.reset_launch_counts()
+    for t in (one, many):
+        t.write_quantized(push, payloads)
+    assert ops.launch_counts()["dequant_scatter"] == \
+        2 + len(many._split(push)) * 2
+    for a, b in zip(one.gather(gids), many.gather(gids)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(many.gather_versioned(
+        gids, np.full(len(gids), -1))[0], one.gather_versioned(
+        gids, np.full(len(gids), -1))[0])
+    if empty is not None:
+        assert many.shards[empty].num_embeddings_stored == 0

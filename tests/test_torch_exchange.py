@@ -158,7 +158,7 @@ def test_client_matches(codec, device_tables):
 
 def test_training_knobs_wait_for_the_training_slice():
     """The training knobs are ported: τ and EF build their host-side
-    trackers.  Transports other than in-process still wait."""
+    trackers.  The TCP transport still waits."""
     tt = tmake_transport(3, H, device="cpu")
     c = TClient(tt, "int8", delta_threshold=0.1, error_feedback=True)
     assert c.delta.tau == 0.1 and c.delta.layers == 2
@@ -226,3 +226,247 @@ def test_delta_and_error_feedback_stream(codec, tau, ef):
         (tlog.bytes, tlog.rpcs, tlog.embeddings)
     assert tlog.seconds == pytest.approx(jlog.seconds, rel=1e-12)
     assert tt.num_embeddings_stored == jt.num_embeddings_stored
+
+
+# -- the sharded transport ------------------------------------------------------
+#
+# Each test runs the JAX package's ShardedTransport (numpy tables) and the
+# port's (tables on the CPU here) on the same inputs.  Held exactly: values,
+# int8 payloads, versions, the gid → row maps of every shard, the placement
+# and pull tallies, and every shard log's (bytes, RPCs, embeddings); the
+# modelled seconds within 1e-12 relative (the same float64 sums).
+
+def _logs(tr):
+    return [(lg.bytes, lg.rpcs, lg.embeddings) for lg in tr.shard_logs]
+
+
+def _same_logs(jt, tt):
+    assert _logs(tt) == _logs(jt)
+    for a, b in zip(jt.shard_logs, tt.shard_logs):
+        assert b.seconds == pytest.approx(a.seconds, rel=1e-12)
+
+
+def _fill(tr, gids, seed, layers=2):
+    vals = [_rows(len(gids), seed + l) for l in range(layers)]
+    tr.register(gids)
+    tr.write(gids, vals)
+    return vals
+
+
+def test_server_forget_leaves_holes():
+    """``forget`` drops registrations and leaves holes; a later register
+    takes fresh rows past them, whose versions start at 0 as in JAX."""
+    js, ts = JServer(3, H), TServer(3, H, device="cpu")
+    gids = np.arange(0, 60, 3)
+    for s in (js, ts):
+        s.register(gids)
+        s.write(gids, [_rows(len(gids), 1), _rows(len(gids), 2)])
+        s.forget(np.array([3, 9, 9, 10_000, 57]))
+        s.register(np.array([9, 200]))
+    np.testing.assert_array_equal(ts._gid2row[:201], js._gid2row[:201])
+    assert ts._next_row == js._next_row == len(gids) + 2
+    assert ts.num_embeddings_stored == js.num_embeddings_stored
+    keep = np.array([0, 6, 9, 54, 200])
+    np.testing.assert_array_equal(ts.versions(keep), js.versions(keep))
+    np.testing.assert_array_equal(ts.versions(keep), [1, 1, 0, 1, 0])
+    for a, b in zip(js.gather(keep[:2]), ts.gather(keep[:2])):
+        np.testing.assert_array_equal(_np(b), a)
+    with pytest.raises(KeyError, match="unregistered"):
+        ts.gather(np.array([3]))
+    assert ts.memory_bytes() == 2 * ts._cap * H * 4
+
+
+def test_sharded_gather_matches_inprocess():
+    """JAX ``test_exchange.py``'s sharded-vs-single gather, on both
+    packages, plus the fused int8 pull: the same values and payloads
+    from the port's 4 shards, its single server and JAX's 4 shards."""
+    gids = np.random.default_rng(1).permutation(500)[:123]
+    single = tmake_transport(3, H, device="cpu")
+    sharded = tmake_transport(3, H, num_shards=4, device="cpu")
+    jsharded = jmake_transport(3, H, num_shards=4)
+    assert type(sharded).__name__ == type(jsharded).__name__ \
+        == "ShardedTransport"
+    vals = _fill(single, gids, 5)
+    _fill(sharded, gids, 5)
+    _fill(jsharded, gids, 5)
+    perm = np.random.default_rng(2).permutation(len(gids))
+    ask = gids[perm]
+    for a, b, c, v in zip(single.gather(ask), sharded.gather(ask),
+                          jsharded.gather(ask), vals):
+        np.testing.assert_array_equal(_np(b), _np(a))
+        np.testing.assert_array_equal(_np(b), c)
+        np.testing.assert_array_equal(_np(b), v[perm])
+    for a, b, c in zip(single.gather_quantized(ask, [2, 1]),
+                       sharded.gather_quantized(ask, [2, 1]),
+                       jsharded.gather_quantized(ask, [2, 1])):
+        for x, y, z in zip(a, b, c):
+            np.testing.assert_array_equal(_np(y), _np(x))
+            np.testing.assert_array_equal(_np(y), z)
+    assert sharded.num_embeddings_stored == \
+        jsharded.num_embeddings_stored == single.num_embeddings_stored
+    assert sharded.memory_bytes() == sum(s.memory_bytes()
+                                         for s in sharded.shards)
+
+
+def test_sharded_traffic_split_and_parallel_time():
+    gids = np.arange(400)
+    single = tmake_transport(3, 32, device="cpu")
+    sharded = tmake_transport(3, 32, kind="sharded", num_shards=4,
+                              device="cpu")
+    jsharded = jmake_transport(3, 32, kind="sharded", num_shards=4)
+    for t in (single, sharded, jsharded):
+        t.register(gids)
+        assert t.account(gids, 2, 4.0) == \
+            pytest.approx(t.transfer_time(gids, 2, 4.0), rel=1e-12)
+    _same_logs(jsharded, sharded)
+    logs = sharded.shard_logs
+    assert len(logs) == 4 and all(lg.bytes > 0 for lg in logs)
+    assert sum(lg.bytes for lg in logs) == single.log.bytes
+    assert sharded.log.bytes == single.log.bytes
+    assert sharded.log.rpcs == 4 and single.log.rpcs == 1
+    assert sharded.transfer_time(gids, 2, 4.0) < \
+        single.transfer_time(gids, 2, 4.0)
+    assert sharded.transfer_time(gids, 2, 4.0) == \
+        jsharded.transfer_time(gids, 2, 4.0)
+
+
+def test_heterogeneous_shard_links():
+    from repro.core.cost_model import NetworkModel as JNet
+    from repro_torch.core.cost_model import NetworkModel as TNet
+
+    kw = dict(bandwidth_bytes_per_s=1e6, rpc_overhead_s=0.1)
+    tr = tmake_transport(3, 32, num_shards=2, nets=[TNet(**kw), TNet()],
+                         device="cpu")
+    jt = jmake_transport(3, 32, num_shards=2, nets=[JNet(**kw), JNet()])
+    gids = np.arange(100)
+    for t in (tr, jt):
+        t.register(gids)
+    t_port, t_jax = tr.account(gids, 2, 4.0), jt.account(gids, 2, 4.0)
+    assert t_port == t_jax
+    assert t_port == pytest.approx(tr.shard_logs[0].seconds)
+    assert tr.shard_logs[0].seconds > tr.shard_logs[1].seconds
+    _same_logs(jt, tr)
+    with pytest.raises(ValueError, match="one per shard"):
+        tmake_transport(3, 32, num_shards=3, nets=[TNet()] * 2,
+                        device="cpu")
+
+
+def test_rebalance_without_log_keeps_hash_placement():
+    ids = np.array([3, 7, 11])
+    for tr in (jmake_transport(3, 8, num_shards=4),
+               tmake_transport(3, 8, num_shards=4, device="cpu")):
+        assert tr.rebalance_by_pulls() is None
+        np.testing.assert_array_equal(tr.shard_of(ids), ids % 4)
+        # pull tallies are off unless rebalancing asked for them
+        tr.register(ids)
+        tr.gather(ids)
+        tr.gather_quantized(ids)
+        assert not np.any(tr._pull_counts)
+
+
+def test_rebalance_migrates_rows():
+    """Skewed pulls, then a rebalance: the placement, the pull tallies,
+    every shard's gid → row map and versions equal JAX's; migrated rows
+    read back equal, fp32 and int8; a fresh register after the
+    migration takes a row past the holes."""
+    sides = [jmake_transport(3, 4, num_shards=2),
+             tmake_transport(3, 4, num_shards=2, device="cpu")]
+    ids = np.arange(10)
+    vals = [np.arange(40, dtype=np.float32).reshape(10, 4) * (l + 1)
+            for l in range(2)]
+    before = []
+    for t in sides:
+        t.track_pulls = True
+        t.register(ids)
+        t.write(ids, vals)
+        before.append([_np(v) for v in t.gather(ids)])
+        for _ in range(3):
+            t.gather(ids[:4])
+        t.gather_quantized(ids[5:7])
+    (jt, tt) = sides
+    np.testing.assert_array_equal(tt._pull_counts, jt._pull_counts)
+    jp, tp = jt.rebalance_by_pulls(), tt.rebalance_by_pulls()
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(tt._placement, jt._placement)
+    assert np.any(tt.shard_of(ids) != ids % 2)
+    for js, ts in zip(jt.shards, tt.shards):
+        np.testing.assert_array_equal(ts._gid2row[:10], js._gid2row[:10])
+    np.testing.assert_array_equal(
+        np.concatenate([s.versions(ids[tt.shard_of(ids) == k])
+                        for k, s in enumerate(tt.shards)]),
+        np.concatenate([s.versions(ids[jt.shard_of(ids) == k])
+                        for k, s in enumerate(jt.shards)]))
+    for t, b in zip(sides, before):
+        for x, y in zip(b, t.gather(ids)):
+            np.testing.assert_array_equal(_np(y), x)
+    for (a, b), (c, d) in zip(jt.gather_quantized(ids),
+                              tt.gather_quantized(ids)):
+        np.testing.assert_array_equal(_np(c), a)
+        np.testing.assert_array_equal(_np(d), b)
+    for t in sides:
+        t.register(np.array([100]))
+        t.write(np.array([100]), [np.full((1, 4), 9.0, np.float32)] * 2)
+        np.testing.assert_array_equal(_np(t.gather(np.array([100]))[0]),
+                                      np.full((1, 4), 9.0, np.float32))
+    assert tt.num_embeddings_stored == jt.num_embeddings_stored
+
+
+@pytest.mark.parametrize("num_shards", [1, 3, 4])
+def test_sharded_stream_identical(num_shards):
+    """One stream of registrations, fused int8 pushes, raw writes, fused
+    pulls, versioned gathers and pull charges on S shards (at S = 4 one
+    shard owns no id): payloads, versions, stale positions and every
+    shard's log equal JAX's."""
+    rng = np.random.default_rng(20 + num_shards)
+    pool = np.arange(3000)
+    if num_shards == 4:
+        pool = pool[pool % 4 != 2]          # shard 2 stays empty
+    jt = jmake_transport(3, H, kind="sharded", num_shards=num_shards)
+    tt = tmake_transport(3, H, kind="sharded", num_shards=num_shards,
+                         device="cpu")
+    have: dict[int, int] = {}
+    for step in range(4):
+        new = rng.choice(pool, size=200, replace=False)
+        jt.register(new)
+        tt.register(new)
+        gids = rng.choice(new, size=120, replace=False)
+        if step % 2 == 0:
+            payloads = [jops._np_quantize_int8(_rows(120, 40 + step + l))
+                        for l in range(2)]
+            jt.write_quantized(gids, payloads)
+            tt.write_quantized(gids, [(torch.from_numpy(v),
+                                       torch.from_numpy(s))
+                                      for v, s in payloads])
+        else:
+            vals = [_rows(120, 50 + step + l) for l in range(2)]
+            jt.write(gids, vals)
+            tt.write(gids, [torch.from_numpy(v) for v in vals])
+        ask = rng.choice(new, size=90)
+        for (a, b), (c, d) in zip(jt.gather_quantized(ask),
+                                  tt.gather_quantized(ask)):
+            np.testing.assert_array_equal(_np(c), a)
+            np.testing.assert_array_equal(_np(d), b)
+        have_v = np.array([have.get(int(g), -1) for g in ask])
+        jv, jst, jvals = jt.gather_versioned(ask, have_v, [1])
+        tv, tst, tvals = tt.gather_versioned(ask, have_v, [1])
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tst, jst)
+        np.testing.assert_array_equal(_np(tvals[0]), jvals[0])
+        have.update({int(g): int(v) for g, v in zip(ask, tv)})
+        for t in (jt, tt):
+            t.account(ask, 2, 1.125)
+            t.account(gids, 2, 1.125)
+    _same_logs(jt, tt)
+    if num_shards == 4:
+        assert tt.shard_logs[2].rpcs == 0
+        assert tt.shards[2].num_embeddings_stored == 0
+    assert tt.num_embeddings_stored == jt.num_embeddings_stored
+
+
+@pytest.mark.parametrize("kw", [dict(kind="inprocess", num_shards=2),
+                                dict(kind="bogus"), dict(kind="tcp")])
+def test_make_transport_refuses_what_jax_refuses(kw):
+    with pytest.raises(ValueError):
+        jmake_transport(3, H, **kw)
+    with pytest.raises(ValueError):
+        tmake_transport(3, H, device="cpu", **kw)

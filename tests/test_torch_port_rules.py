@@ -53,6 +53,7 @@ def test_scan_catches_a_jax_import(tmp_path):
     federated.FederatedGNNTrainer.__init__, pruning.top_fraction,
     engine.build_serving, engine.ShardServeEngine.__init__,
     transport.make_transport, transport.InProcessTransport.__init__,
+    transport.ShardedTransport.__init__,
     embedding_server.EmbeddingServer.__init__, gnn.init_gnn,
     gnn.from_jax_leaves, lm.init_params, lm.from_jax_params, lm.init_cache,
     layers.init_kv_cache, serving.ContinuousBatcher.__init__,

@@ -3,26 +3,35 @@
 Both trainers run arxiv at scale 0.1 (seed 7), 2 clients, GraphConv
 L = 3, hidden 16, from the JAX trainer's initial parameters, for two
 rounds of each strategy: E, OPG and OPP (frequency scores, as the paper
-defaults) and E with the int8 codec, error feedback and τ = 0.05 delta
-pushes.
+defaults), E with the int8 codec, error feedback and τ = 0.05 delta
+pushes, E with int8 over 4 hashed embedding-server shards, E over 4
+shards placed by pull frequency (rebalanced before round 1), and E with
+SGD (momentum 0.9), AdamW and Adafactor in place of Adam.
 
 Held exactly: the shards, pull, push, retained and prefetch sets, the
-dynamic-pull RPC sizes, the stored-embedding count and the transfer
-log's bytes and RPCs.  Held within tolerances, per round: the training
-loss (relative 1e-4 in fp32; 1e-3 with int8, where a one-ulp difference
-in a summed embedding can flip one rounding of the codec) and the global
-parameters (absolute 1e-4 in fp32, 1e-3 with int8): the two frameworks'
-float32 products and sums add in different orders.  Accuracy differs by
-at most one test vertex.  Then the port's trained state is published
-and served.
+dynamic-pull RPC sizes, the stored-embedding count and every shard
+log's bytes, RPCs and embeddings; with pull-frequency placement the
+pull tallies and the placement map.  Held within tolerances, per round:
+the training loss (relative 1e-4 in fp32; 1e-3 with int8, where a
+one-ulp difference in a summed embedding can flip one rounding of the
+codec) and the global parameters (absolute 1e-4 in fp32, 1e-3 with
+int8): the two frameworks' float32 products and sums add in different
+orders.  Accuracy differs by at most one test vertex.  Sharding the
+exchange changes no number of the port's (accuracies ``==``, parameters
+``torch.equal`` at 1 and 4 shards), and neither do the coordinator's
+fields of a Strategy, which the in-process trainers of both packages
+accept and do not read.  Then the port's trained state is published and
+served.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from repro import optim as joptim
 from repro.core.federated import FederatedGNNTrainer as JTrainer
 from repro.core.strategies import default_strategies as jstrategies
 from repro.gnnserve import build_serving as jbuild_serving
@@ -31,6 +40,7 @@ from repro_torch.core.federated import FederatedGNNTrainer as TTrainer
 from repro_torch.core.strategies import default_strategies as tstrategies
 from repro_torch.gnnserve import build_serving as tbuild_serving
 from repro_torch.graphs import make_graph as tmake_graph
+from repro_torch import optim as toptim
 from repro_torch.models.gnn import from_jax_leaves
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
@@ -38,20 +48,39 @@ torch.set_num_threads(1)
 
 L, HIDDEN, ROUNDS = 3, 16, 2
 INT8_EF_TAU = dict(codec="int8", error_feedback=True, delta_threshold=0.05)
-CASES = {"E": ("E", {}), "OPG": ("OPG", {}), "OPP": ("OPP", {}),
-         "E-int8-ef-tau": ("E", INT8_EF_TAU)}
+SHARDS4 = dict(num_server_shards=4)
+#: case → (strategy, its overrides, (optimizer, args, kwargs) or None)
+CASES = {"E": ("E", {}, None), "OPG": ("OPG", {}, None),
+         "OPP": ("OPP", {}, None),
+         "E-int8-ef-tau": ("E", INT8_EF_TAU, None),
+         "E-int8-4-shards": ("E", dict(codec="int8", **SHARDS4), None),
+         "E-pull-frequency-4-shards": (
+             "E", dict(shard_placement="pull_frequency", **SHARDS4), None),
+         "E-sgd-momentum": ("E", {}, ("sgd", (0.05,), {"momentum": 0.9})),
+         "E-adamw": ("E", {}, ("adamw", (1e-2,), {})),
+         "E-adafactor": ("E", {}, ("adafactor", (1e-2,), {}))}
 
 
 def _pair(case):
-    base, over = CASES[case]
+    base, over, opt = CASES[case]
     kw = dict(num_layers=L, hidden=HIDDEN, seed=0)
+    jkw, tkw = dict(kw), dict(kw)
+    if opt is not None:
+        name, args, okw = opt
+        jkw["optimizer"] = getattr(joptim, name)(*args, **okw)
+        tkw["optimizer"] = getattr(toptim, name)(*args, **okw)
     jt = JTrainer(jmake_graph("arxiv", scale=0.1, seed=7), 2,
-                  dataclasses.replace(jstrategies()[base], **over), **kw)
+                  dataclasses.replace(jstrategies()[base], **over), **jkw)
     model = from_jax_leaves(jt.params_leaves(), "graphconv", device="cpu")
     tt = TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2,
                   dataclasses.replace(tstrategies()[base], **over),
-                  model=model, device="cpu", **kw)
+                  model=model, device="cpu", **tkw)
     return jt, tt
+
+
+def _shard_logs(tr):
+    return [(lg.bytes, lg.rpcs, lg.embeddings)
+            for lg in tr.exchange.shard_logs]
 
 
 def _same_sets(jt, tt):
@@ -85,16 +114,22 @@ def test_two_rounds_match_jax(case):
         jcum, tcum = js.cum_time, ts.cum_time
         assert ts.pull_rpc_sizes == js.pull_rpc_sizes
         assert ts.embeddings_stored == js.embeddings_stored
-        jlog, tlog = jt.exchange.log, tt.exchange.log
-        assert (tlog.bytes, tlog.rpcs, tlog.embeddings) == \
-            (jlog.bytes, jlog.rpcs, jlog.embeddings)
+        assert _shard_logs(tt) == _shard_logs(jt)
+        assert len(_shard_logs(tt)) == tt.strategy.num_server_shards
         assert ts.train_loss == pytest.approx(js.train_loss, rel=rtol)
         assert abs(ts.accuracy - js.accuracy) <= one_vertex + 1e-12
         for a, b in zip(jt.params_leaves(), tt.params_leaves()):
             np.testing.assert_allclose(b, a, rtol=0, atol=atol)
     if case == "OPP":
         assert sum(ts.pull_rpc_sizes) > 0
-    if lossy:
+    if "pull-frequency" in case:
+        assert tt.exchange.track_pulls and jt.exchange.track_pulls
+        np.testing.assert_array_equal(tt.exchange._pull_counts,
+                                      jt.exchange._pull_counts)
+        np.testing.assert_array_equal(tt.exchange._placement,
+                                      jt.exchange._placement)
+        assert np.any(tt.exchange._placement >= 0)
+    if tt.ex_clients[0].delta is not None:
         for jc, tc in zip(jt.ex_clients, tt.ex_clients):
             assert tc.delta.history == jc.delta.history
 
@@ -121,15 +156,85 @@ def test_trained_port_publishes_and_serves():
     assert agree >= 0.95
 
 
-@pytest.mark.parametrize("over,kw", [
-    (dict(num_server_shards=2), {}), (dict(transport="tcp"), {}),
-    (dict(shard_placement="pull_frequency"), {}),
-    (dict(aggregation="async"), {}), (dict(weight_codec="int8"), {}),
-    (dict(sample_frac=0.5), {}), ({}, dict(only_clients=[0])),
-    ({}, dict(growth=object())), ({}, dict(shards=[None, None])),
-    ({}, dict(transport_addrs=[":7040"]))])
-def test_unported_configurations_are_refused(over, kw):
+def _port_run(over, **kw):
+    """Two rounds of the port's E from the JAX trainer's initial
+    parameters: (accuracies, losses, parameters)."""
+    jt = JTrainer(jmake_graph("arxiv", scale=0.1, seed=7), 2,
+                  jstrategies()["E"], num_layers=L, hidden=HIDDEN, seed=0)
+    model = from_jax_leaves(jt.params_leaves(), "graphconv", device="cpu")
+    tt = TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2,
+                  dataclasses.replace(tstrategies()["E"], **over),
+                  model=model, device="cpu", num_layers=L, hidden=HIDDEN,
+                  seed=0, **kw)
+    stats = tt.train(ROUNDS)
+    return ([s.accuracy for s in stats], [s.train_loss for s in stats],
+            tt.params_leaves())
+
+
+def test_sharding_never_changes_the_port_numerics():
+    """E + int8 on the port at 1 and at 4 shards (the 4 behind links of
+    different speeds): the same rounds, bit for bit."""
+    from repro_torch.core.cost_model import NetworkModel
+
+    one = _port_run(dict(codec="int8"))
+    nets = [NetworkModel(bandwidth_bytes_per_s=b) for b in
+            (125e6, 1e6, 125e6, 5e7)]
+    four = _port_run(dict(codec="int8", **SHARDS4), shard_nets=nets)
+    assert four[0] == one[0] and four[1] == one[1]
+    for a, b in zip(one[2], four[2]):
+        assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_runs():
+    """Two sync rounds of E on each package (shared by the cases below)."""
+    kw = dict(num_layers=L, hidden=HIDDEN, seed=0)
+    jt = JTrainer(jmake_graph("arxiv", scale=0.1, seed=7), 2,
+                  jstrategies()["E"], **kw)
+    jstats = jt.train(ROUNDS)
+    return (([s.accuracy for s in jstats], jt.params_leaves()),
+            _port_run({}))
+
+
+@pytest.mark.parametrize("over", [dict(aggregation="async"),
+                                  dict(weight_codec="int8"),
+                                  dict(sample_frac=0.5)])
+def test_coordinator_fields_leave_the_rounds_unchanged(over):
+    """The in-process trainers of both packages accept the coordinator's
+    fields of a Strategy and do not read them: the same rounds as sync,
+    bit for bit, on each package."""
+    (jaccs, jleaves), (taccs, tloss, tleaves) = _sync_runs()
+    jt = JTrainer(jmake_graph("arxiv", scale=0.1, seed=7), 2,
+                  dataclasses.replace(jstrategies()["E"], **over),
+                  num_layers=L, hidden=HIDDEN, seed=0)
+    assert [s.accuracy for s in jt.train(ROUNDS)] == jaccs
+    for a, b in zip(jleaves, jt.params_leaves()):
+        np.testing.assert_array_equal(b, a)
+    accs, loss, leaves = _port_run(over)
+    assert accs == taccs and loss == tloss
+    for a, b in zip(tleaves, leaves):
+        assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("over,kw,item", [
+    (dict(transport="tcp"), {}, 3), ({}, dict(only_clients=[0]), 3),
+    ({}, dict(growth=object()), 5), ({}, dict(shards=[None, None]), 4),
+    ({}, dict(transport_addrs=[":7040"]), 3)])
+def test_unported_configurations_are_refused(over, kw, item):
     st = dataclasses.replace(tstrategies()["E"], **over)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"not ported.*ROADMAP\.md.*item {item}\)"):
         TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2, st,
                  device="cpu", **kw)
+
+
+@pytest.mark.parametrize("placement,match", [
+    ("pull_frequency", "pull_frequency"), ("pull_freq", "shard_placement")])
+def test_shard_placement_is_checked(placement, match):
+    """JAX ``test_graphstore.py``'s two ValueErrors: pull-frequency
+    placement needs the sharded transport, and an unknown placement is
+    refused."""
+    st = dataclasses.replace(tstrategies()["E"], shard_placement=placement)
+    with pytest.raises(ValueError, match=match):
+        TTrainer(tmake_graph("arxiv", scale=0.08, seed=3), 2, st,
+                 batch_size=32, seed=0, device="cpu")
