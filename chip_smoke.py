@@ -147,6 +147,36 @@ Phases, each of which fails the run:
    / trace-on step timing in turns, and rows 3 and 4 at the per-shard
    shapes; the Chrome trace goes to ``build/sharded_trace.json``.
 
+14. The TCP deployment (after step 12).  (a) In threads: the reddit
+   preset at scale 1 (4,000 vertices), 4 clients, OPG + int8 + degree
+   scores, 2 epochs, 2 rounds; two port embed servers on the card
+   (``serve_in_thread``, loopback TCP), a port coordinator and two port
+   ``FedWorker``s of two clients each.  Fails unless the final leaves
+   are within 1e-6 of the port's in-process trainer over 2 shards from
+   the same RunConfig (max |Δ| printed) and the accuracies equal; each
+   shard's payload bytes equal ``embedding_bytes`` of its RPCs; the
+   codec counters' change across the window (zeroed before the
+   coordinator and workers are built) equals the launches the RPCs call
+   for (one a non-empty shard RPC and layer: row 3 a pull, row 4 a push
+   on the servers, rows 1 and 2 on the clients); and ``obs_dump``
+   scrapes five endpoints whose ``pt_exchange`` RPC counts equal the
+   ledgers'.  Then a short run with the int8 weight codec and its error
+   feedback (Strategy D, scale 0.5, 1 epoch, 2 rounds): the
+   coordinator's decoded updates bit-equal to the workers' local round
+   trips, 1 B a scalar plus 4 B a leaf; rows 1 and 2 at its largest leaf, (1, 3072), timed
+   (``weight_leaf``).  (b) As processes, through the launchers: two
+   ``embed_server``s, a ``fed_coordinator`` and two ``fed_worker``s
+   (clients 0-1, 2-3) at scale 8 (32,000 vertices: at 58 the phase
+   took 208 s), one epoch, one round, tracing on,
+   each address read from the child's "listening on" line (port 0),
+   every wait bounded; every child exits 0, the coordinator prints
+   DONE, and one ``obs_dump`` scrape of the five endpoints holds each
+   worker's ``pt_exchange`` counts to its ledger.  It prints set-up
+   seconds, the round's wall seconds, each client's pull, train and
+   push seconds (measured, and modelled for the wire), measured against
+   modelled RPC seconds, the fitted ``NetworkModel`` and the span
+   seconds by name; the merged trace goes to ``build/tcp_trace.json``.
+
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
 line before the last is the card's name and power limit; the one
@@ -160,9 +190,12 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import pathlib
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
@@ -190,6 +223,10 @@ SHARDS = 4                    # embedding-server shards of the sharded phase
 SHARDED_STEPS = 16            # minibatches per client epoch there
 SHARDED_EPOCHS = 2            # the overlapped push runs after epoch 1
 SHARDED_QUERIES = 512
+TCP_THREAD_SCALE = 1.0        # phase 14a: 4,000 vertices
+TCP_WEIGHT_SCALE = 0.5        # its weight-codec run: 2,000 vertices
+TCP_PROCESS_SCALE = 8.0       # phase 14b: 32,000 vertices (cut from 58)
+TCP_EPOCHS = 2                # local epochs a round in 14a (14b: one)
 
 
 class SmokeFailure(Exception):
@@ -2381,6 +2418,438 @@ def lm_reference_phase(torch, np) -> dict:
     return out
 
 
+# -- phase 14: the TCP deployment ---------------------------------------------
+
+def tcp_config(scale: float, rounds: int, **over):
+    """The phase's RunConfig: the reddit preset, 4 clients, OPG + int8 +
+    degree scores, GraphConv L=3 hidden 32, TCP_EPOCHS local epochs."""
+    from repro_torch.fedsvc.runtime import RunConfig
+
+    return RunConfig(graph="reddit", scale=scale, graph_seed=0,
+                     num_clients=4, strategy="OPG",
+                     overrides={"codec": "int8", "score_kind": "degree",
+                                **over},
+                     epochs_per_round=TCP_EPOCHS, rounds=rounds, seed=0)
+
+
+def implied_launches(transports) -> dict:
+    """The codec launches the RPCs of ``transports`` call for: one a
+    layer of every non-empty shard RPC, on the client (row 1 encodes a
+    write, row 2 decodes a gather's reply) and on the server (row 4
+    applies the write, row 3 answers the gather)."""
+    want = {"quantize_int8": 0, "dequantize_int8": 0, "gather_quantize": 0,
+            "dequant_scatter": 0}
+    for t in transports:
+        for r in t.rpc_samples:
+            if r.n_rows == 0:
+                continue
+            if r.op == "write":
+                want["quantize_int8"] += r.layers
+                want["dequant_scatter"] += r.layers
+            elif r.op == "gather":
+                want["dequantize_int8"] += r.layers
+                want["gather_quantize"] += r.layers
+    return want
+
+
+def weight_wire_run(torch, np, dev: str, scale: float) -> dict:
+    """A short deployment in threads with the int8 weight codec and its
+    error feedback (Strategy D, no embedding plane): what the
+    coordinator decodes from every update is bit-equal to the worker's
+    local round trip (the view its EF committed), and an update is 1 B a
+    scalar plus 4 B a leaf."""
+    from repro_torch.exchange import codec as tcodec
+    from repro_torch.exchange.delta import LeafErrorFeedback
+    from repro_torch.fedsvc.coordinator import serve_in_thread
+    from repro_torch.fedsvc.runtime import make_coordinator_state
+    from repro_torch.fedsvc.worker import FedWorker, run_in_thread
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(
+        tcp_config(scale, 2, weight_codec="int8",
+                   weight_error_feedback=True), strategy="D",
+        epochs_per_round=1)
+    committed, received = [], []
+    commit = LeafErrorFeedback.commit
+
+    def spy_commit(self, compensated, decoded):
+        committed.append([np.asarray(d).copy() for d in decoded])
+        return commit(self, compensated, decoded)
+
+    LeafErrorFeedback.commit = spy_commit
+    try:
+        state = make_coordinator_state(cfg, device=dev)
+        update = state._op_update
+
+        def spy_update(conn_id, header, tensors):
+            received.append((header, [np.asarray(t).copy()
+                                      for t in tensors]))
+            return update(conn_id, header, tensors)
+
+        state._op_update = spy_update
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with serve_in_thread(state) as coord:
+            workers = [FedWorker(cfg, [2 * i, 2 * i + 1], coord.address,
+                                 device=dev) for i in range(2)]
+            threads = [run_in_thread(w) for w in workers]
+            check(coord.join(timeout=300), "weight-wire run: no DONE")
+            for t in threads:
+                t.join(60)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        LeafErrorFeedback.commit = commit
+    check(len(state.history) == 2 and len(received) == 8,
+          f"weight-wire run: {len(state.history)} rounds, "
+          f"{len(received)} updates")
+    n_params = sum(int(np.prod(l.shape)) for l in state.leaves)
+    n_leaves = len(state.leaves)
+    sizes = [sum(t.nbytes for t in ts) for _, ts in received]
+    check(all(s == n_params + 4 * n_leaves for s in sizes),
+          f"update payloads {sorted(set(sizes))} B, want "
+          f"{n_params} + 4 x {n_leaves}")
+    decoded = [tcodec.decode_leaves("int8", t, h["shapes"], device=dev)
+               for h, t in received]
+    ours = sorted(x.tobytes() for d in decoded for x in d)
+    theirs = sorted(x.tobytes() for d in committed for x in d)
+    check(ours == theirs, "the coordinator's decoded updates differ from "
+                          "the workers' local round trips")
+    largest = max(int(np.prod(l.shape)) for l in state.leaves)
+    return {"rounds": len(state.history), "updates": len(received),
+            "params": n_params, "leaves": n_leaves, "largest_leaf": largest,
+            "update_payload_bytes": sizes[0],
+            "weight_bytes_by_round": [h["weight_bytes"]
+                                      for h in state.history],
+            "accuracy": [h["accuracy"] for h in state.history],
+            "wall_s": wall, "launches": launches}
+
+
+def leaf_kernel_cases(torch, np, size: int, launches: dict) -> dict:
+    """Rows 1 and 2 at the weight wire's largest leaf, one (1, size) row
+    (the encode's one-warp-a-row branch, the decode's four values a
+    thread), against their plain versions."""
+    from repro_torch.kernels import ops, ref
+
+    x = torch.randn((1, size), generator=torch.Generator(
+        device=DEV).manual_seed(5), device=DEV)
+    q, s = ops.quantize_int8(x)
+    rq, rs = ref.quantize_int8(x)
+    check(torch.equal(q, rq) and torch.equal(s, rs),
+          f"quantize_int8 differs from plain at (1, {size})")
+    check(torch.equal(ops.dequantize_int8(q, s), ref.dequantize_int8(q, s)),
+          f"dequantize_int8 differs from plain at (1, {size})")
+    enc = with_bound({
+        "shape": (1, size), "launches": launches.get("quantize_int8", 0),
+        "ms": time_ms(torch, lambda: ops.quantize_int8(x)),
+        "plain_ms": time_ms(torch, lambda: ref.quantize_int8(x)),
+        "library_ms": None,
+        "device_ms": device_ms(torch, lambda: ops.quantize_int8(x),
+                               "quantize_rows_kernel"),
+        "nbytes": size * 4 + size + 4})
+    dec = with_bound({
+        "shape": (1, size), "launches": launches.get("dequantize_int8", 0),
+        "ms": time_ms(torch, lambda: ops.dequantize_int8(q, s)),
+        "plain_ms": time_ms(torch, lambda: ref.dequantize_int8(q, s)),
+        "library_ms": time_ms(torch, lambda: torch.mul(q, s)),
+        "device_ms": device_ms(torch, lambda: ops.dequantize_int8(q, s),
+                               "dequantize_quads_kernel"),
+        "nbytes": size + 4 + size * 4})
+    return {"quantize_int8": enc, "dequantize_int8": dec}
+
+
+def tcp_thread_phase(torch, np, dev: str = DEV,
+                     scale: float = TCP_THREAD_SCALE) -> tuple[dict, dict]:
+    """14a: two port embed servers, a port coordinator and two port
+    workers of two clients each, in threads over loopback TCP, held to
+    the port's in-process trainer over 2 shards from the same RunConfig.
+    Returns the measurements and the launches of the deployment's
+    window."""
+    from repro_torch.core.cost_model import NetworkModel
+    from repro_torch.exchange import get_codec
+    from repro_torch.fedsvc.coordinator import serve_in_thread
+    from repro_torch.fedsvc.runtime import make_coordinator_state
+    from repro_torch.fedsvc.worker import FedWorker, run_in_thread
+    from repro_torch.kernels import ops
+    from repro_torch.launch import embed_server, obs_dump
+    from repro_torch.obsv import teleserve
+    from repro_torch.obsv.trace import TRACE
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ref = tcp_config(scale, 2, num_server_shards=2).build_trainer(device=dev)
+    ref_stats = ref.train(2)
+    sync()
+    ref_s = time.perf_counter() - t0
+
+    TRACE.clear()
+    TRACE.enable()
+    servers = [embed_server.serve_in_thread(3, 32, device=dev)
+               for _ in range(2)]
+    cfg = tcp_config(scale, 2)
+    cfg.embed_addrs = [f"{h.host}:{h.port}" for h in servers]
+    obs = [teleserve.serve_telemetry() for _ in range(2)]
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = make_coordinator_state(cfg, device=dev)
+        with serve_in_thread(state) as coord:
+            workers = [FedWorker(cfg, [2 * i, 2 * i + 1], coord.address,
+                                 worker_id=f"w{i}", device=dev)
+                       for i in range(2)]
+            setup_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            threads = [run_in_thread(w) for w in workers]
+            check(coord.join(timeout=600), "14a: the coordinator never "
+                                           "finished")
+            for t in threads:
+                t.join(60)
+            sync()
+            run_s = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            check(all(not t.is_alive() for t in threads)
+                  and all(not w.dropped and not w.disconnected
+                          for w in workers), "14a: a worker did not finish")
+            doc, table = obs_dump.dump(
+                [("coordinator", coord.address)]
+                + [(f"embed{i}", h.address) for i, h in enumerate(servers)]
+                + [(f"worker{i}", h.address) for i, h in enumerate(obs)])
+    finally:
+        TRACE.disable()
+        for h in servers + obs:
+            h.stop()
+    transports = [w.trainer.exchange for w in workers]
+
+    # the model: leaves and accuracies as the in-process trainer's
+    leaf_err = max(float(np.abs(a - b).max()) for a, b in
+                   zip(ref.params_leaves(), state.leaves))
+    print(f"14a: max |leaf - in-process leaf| {leaf_err:.3g}", flush=True)
+    check(leaf_err <= TOL, f"14a: leaves differ from the in-process "
+                           f"trainer's by {leaf_err}")
+    accs = [h["accuracy"] for h in state.history]
+    check(accs == [s.accuracy for s in ref_stats],
+          f"14a: accuracies {accs} != in-process "
+          f"{[s.accuracy for s in ref_stats]}")
+    # the wire: each shard's payload bytes are the model's bytes
+    bps = get_codec("int8").bytes_per_scalar(32)
+    net = NetworkModel()
+    shard_bytes = [0, 0]
+    for t in transports:
+        for s, lg in enumerate(t.wire_logs):
+            want = sum(net.embedding_bytes(r.n_rows, 32, r.layers,
+                                           bytes_per_scalar=bps)
+                       for r in t.rpc_samples
+                       if r.shard == s and r.op != "register")
+            check(lg.bytes == want, f"14a: shard {s} carried {lg.bytes} B, "
+                                    f"the model's bytes are {want}")
+            shard_bytes[s] += lg.bytes
+    # the kernels: the codec launches are those the RPCs call for
+    want = implied_launches(transports)
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"14a: codec launches {got}, the RPCs call for "
+                       f"{want}")
+    # the scrape: five endpoints; the RPC histograms count the ledgers
+    metrics = {}
+    for block in table.split("# ")[1:]:
+        label = block.split(" ", 1)[0]
+        metrics[label] = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1]
+                          for ln in block.splitlines()[1:] if ln}
+    check(len([e for e in doc["traceEvents"] if e["ph"] == "M"]) == 5,
+          "14a: obs_dump did not scrape five endpoints")
+    rpc_hist = sum(int(v.split()[0].split("=")[1])
+                   for k, v in metrics["worker0"].items()
+                   if k.startswith("pt_exchange.latency_s."))
+    rpc_log = sum(t.wire_log.rpcs for t in transports)
+    check(rpc_hist == rpc_log, f"14a: pt_exchange counts {rpc_hist} RPCs, "
+                               f"the TransferLogs {rpc_log}")
+    wire_log = [t.wire_log for t in transports]
+    return {
+        "scale": scale, "clients": 4, "rounds": 2, "epochs": TCP_EPOCHS,
+        "reference_s": ref_s, "setup_s": setup_s, "run_s": run_s,
+        "accuracy": accs, "max_leaf_err": leaf_err,
+        "round_wall_s": [h["wall_s"] for h in state.history],
+        "shard_payload_bytes": shard_bytes,
+        "rpcs": rpc_log, "rpc_histogram_count": rpc_hist,
+        "measured_rpc_s": sum(w.measured_seconds for w in wire_log),
+        "modelled_rpc_s": sum(w.seconds for w in wire_log),
+        "codec_launches": got,
+    }, launches
+
+
+class Child:
+    """One launcher process: its stdout read line by line on a thread,
+    so the script can wait, with a timeout, for a line it expects."""
+
+    def __init__(self, name: str, argv: list, env: dict, stdin=None):
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m"] + argv, env=env, text=True,
+            stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        self.lines: list[str] = []
+        self._cv = threading.Condition()
+        threading.Thread(target=self._read,
+                                       daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append(line.rstrip("\n"))
+                self._cv.notify_all()
+        with self._cv:
+            self.lines.append(None)
+            self._cv.notify_all()
+
+    def wait_line(self, prefix: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                for ln in self.lines:
+                    if ln is not None and ln.startswith(prefix):
+                        return ln
+                left = deadline - time.monotonic()
+                if None in self.lines or left <= 0:
+                    tail = "\n".join(str(x) for x in self.lines[-30:])
+                    raise SmokeFailure(f"{self.name}: no {prefix!r} line "
+                                       f"(exit {self.proc.poll()}):\n{tail}")
+                self._cv.wait(min(left, 1.0))
+
+    def finish(self, timeout: float) -> int:
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+            raise SmokeFailure(f"{self.name} did not exit within {timeout} s")
+
+
+def tcp_process_phase(torch, np, dev: str = DEV,
+                      scale: float = TCP_PROCESS_SCALE) -> dict:
+    """14b: the deployment through the launchers, as processes: two
+    embed servers, a coordinator, two workers of two clients each, the
+    reddit preset at ``scale``, one round of one epoch, tracing
+    on; then one obs_dump scrape of the five endpoints."""
+    from repro_torch.exchange import wire
+    from repro_torch.exchange.socket_transport import parse_address
+    from repro_torch.launch import obs_dump
+
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(src),
+           "REPRO_TRACE": "1"}
+    out_dir = pathlib.Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    hist_path = out_dir / "tcp_history.json"
+    children: list[Child] = []
+    try:
+        t0 = time.perf_counter()
+        embeds = [Child(f"embed{i}", ["repro_torch.launch.embed_server",
+                                      "--port", "0", "--device", dev],
+                        env) for i in range(2)]
+        children += embeds
+        addrs, setup = [], {}
+        for c in embeds:
+            ln = c.wait_line("embed_server listening on", 120)
+            addrs.append(ln.split()[3])
+            setup[c.name] = time.perf_counter() - c.t0
+        common = ["--graph", "reddit", "--scale", str(scale),
+                  "--graph-seed", "0", "--clients", "4", "--strategy", "OPG",
+                  "--set", "codec=int8", "--set", "score_kind=degree",
+                  "--epochs", "1", "--rounds", "1",
+                  "--device", dev] + sum((["--embed", a] for a in addrs), [])
+        coord = Child("coordinator", ["repro_torch.launch.fed_coordinator",
+                                      "--port", "0", "--timeout", "600",
+                                      "--linger", "8", "--out",
+                                      str(hist_path)] + common, env)
+        children.append(coord)
+        ln = coord.wait_line("fed_coordinator listening on", 300)
+        caddr = ln.split()[3]
+        setup["coordinator"] = float(ln.split("setup ")[1].split()[0])
+        workers = [Child(f"worker{i}", ["repro_torch.launch.fed_worker",
+                                        "--coordinator", caddr,
+                                        "--client-ids", f"{2 * i},{2 * i + 1}",
+                                        "--obs-port", "0",
+                                        "--obs-linger", "120"] + common,
+                         env, stdin=subprocess.PIPE) for i in range(2)]
+        children += workers
+        obs_addrs = []
+        for w in workers:
+            obs_addrs.append(w.wait_line("fed_worker telemetry on", 300)
+                             .split()[3])
+            ln = w.wait_line("fed_worker worker-", 300)
+            setup[w.name] = float(ln.split("setup ")[1].split()[0])
+        coord.wait_line("fed_coordinator DONE", 900)
+        wires = {}
+        for i, w in enumerate(workers):
+            w.wait_line(f"fed_worker worker-{2 * i}-{2 * i + 1} DONE", 120)
+            wires[w.name] = json.loads(w.wait_line(
+                f"fed_worker worker-{2 * i}-{2 * i + 1} wire", 10)
+                .split(" wire ", 1)[1])
+        wall = time.perf_counter() - t0
+        doc, table = obs_dump.dump(
+            [("coordinator", caddr)]
+            + [(f"embed{i}", a) for i, a in enumerate(addrs)]
+            + [(f"worker{i}", a) for i, a in enumerate(obs_addrs)])
+        # release everyone: workers on stdin's close, the servers by RPC
+        for w in workers:
+            w.proc.stdin.close()
+        for a in addrs:
+            with socket.create_connection(parse_address(a), timeout=10) as s:
+                wire.send_frame(s, wire.build_shutdown())
+                wire.parse_response(wire.recv_frame(s))
+        codes = {c.name: c.finish(120) for c in children}
+    finally:
+        for c in children:
+            if c.proc.poll() is None:
+                c.proc.kill()
+                c.proc.wait(10)
+    check(all(v == 0 for v in codes.values()), f"14b: exit codes {codes}")
+    history = json.loads(hist_path.read_text())
+    check(len(history) == 1 and 0.0 <= history[0]["accuracy"] <= 1.0,
+          f"14b: history {history}")
+    records = {}
+    for i, w in enumerate(workers):
+        recs = [json.loads(ln) for ln in w.lines
+                if ln and ln.startswith("{")]
+        check(len(recs) == 1, f"14b: {w.name} printed {len(recs)} rounds")
+        records[w.name] = recs[0]
+    # the trace: five tracks, each with spans; seconds by span name
+    meta = [e for e in doc["traceEvents"] if e["ph"] == "M"]
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    check(len(meta) == 5 and {e["pid"] for e in spans} ==
+          {e["pid"] for e in meta}, "14b: obs_dump lacks a process's spans")
+    by_name: dict = {}
+    for e in spans:
+        n, s_ = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, s_ + e["dur"] / 1e6)
+    trace_path = out_dir / "tcp_trace.json"
+    trace_path.write_text(json.dumps(doc))
+    # each worker's scraped RPC histograms count its own ledger
+    blocks = {b.split(" ", 1)[0]: b for b in table.split("# ")[1:]}
+    for i, w in enumerate(workers):
+        counted = sum(int(ln.split("count=")[1].split()[0])
+                      for ln in blocks[f"worker{i}"].splitlines()
+                      if ln.startswith("pt_exchange.latency_s."))
+        logged = sum(o["rpcs"] for o in wires[w.name]["ops"].values())
+        check(counted == logged, f"14b: {w.name} scraped {counted} RPCs, "
+                                 f"its ledger {logged}")
+    return {
+        "scale": scale, "clients": 4, "rounds": 1, "epochs": 1,
+        "setup_s": setup, "wall_s": wall,
+        "round_wall_s": history[0]["wall_s"],
+        "round_measured_s": history[0]["round_measured_s"],
+        "round_modelled_s": history[0]["round_modelled_s"],
+        "accuracy": history[0]["accuracy"],
+        "phases": {w: r["phases"] for w, r in records.items()},
+        "wire": wires,
+        "spans": {k: {"count": n, "seconds": s_}
+                  for k, (n, s_) in sorted(by_name.items())},
+        "trace_file": "build/tcp_trace.json",
+    }
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -2456,6 +2925,20 @@ def main() -> int:
     lm_batcher_phase(torch, np, cfg, params)
     del params
     lm_reference_phase(torch, np)
+    t0 = time.perf_counter()
+    tcp, tcp_counts = tcp_thread_phase(torch, np)
+    weight = weight_wire_run(torch, np, DEV, TCP_WEIGHT_SCALE)
+    for name, case in leaf_kernel_cases(torch, np, weight["largest_leaf"],
+                                        weight["launches"]).items():
+        next(r for r in report if r["name"] == name)["weight_leaf"] = case
+    tcp["weight_wire"] = {k: v for k, v in weight.items()
+                          if k != "launches"}
+    tcp["phase_s"] = time.perf_counter() - t0
+    print("tcp deployment in threads: " + json.dumps(tcp), flush=True)
+    t0 = time.perf_counter()
+    procs = tcp_process_phase(torch, np)
+    procs["phase_s"] = time.perf_counter() - t0
+    print("tcp deployment as processes: " + json.dumps(procs), flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -2463,15 +2946,16 @@ def main() -> int:
         row["launches_pull"] = pull_counts.get(name, 0)
         row["launches_lm"] = lm_counts.get(name, 0)
         row["launches_sharded"] = sharded_counts.get(name, 0)
+        row["launches_tcp"] = tcp_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
-                           + row["launches_sharded"])
+                           + row["launches_sharded"] + row["launches_tcp"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
           f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
-          f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)}",
-          flush=True)
+          f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)} "
+          f"tcp {json.dumps(tcp_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

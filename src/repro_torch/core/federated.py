@@ -18,17 +18,19 @@ The publish half is also usable without a trainer, as functions over
   export_for_serving  — publish every owned vertex's h^1..h^{L-1} and
                         return the bundle ``gnnserve.build_serving`` takes
 
-:class:`FederatedGNNTrainer` runs the in-process configurations: one
-embedding server or S hashed shards (``num_server_shards``, with
-``shard_placement="pull_frequency"`` re-placing rows by observed pulls
-at ``rebalance_round``), each shard behind its own modelled link
-(``shard_nets``).  Its constructor refuses what needs the TCP wire, the
-fedsvc worker, the graph store or graph growth (``ROADMAP.md`` Queue A
-items 3–5).  The coordinator's fields of a Strategy (``aggregation``,
-``weight_codec``, ``sample_frac``) are accepted and not read here, as
-in the JAX package: its fedsvc coordinator and workers read them, and
-they build in-process trainers from the same Strategy.  It records the
-JAX trainer's trace spans (``client.pull``, ``client.train_epoch``,
+:class:`FederatedGNNTrainer` runs one embedding server or S hashed
+shards (``num_server_shards``, with ``shard_placement="pull_frequency"``
+re-placing rows by observed pulls at ``rebalance_round``), each shard
+behind its own modelled link (``shard_nets``), or live TCP embedding
+servers (``transport="tcp"`` with ``transport_addrs``).  With
+``only_clients`` it is a shard-local trainer for a fedsvc worker: it
+builds samplers, device arrays and registrations for those clients only
+and never evaluates.  Its constructor refuses the graph store and graph
+growth (``ROADMAP.md`` Queue A items 4 and 5).  The coordinator's
+fields of a Strategy (``aggregation``, ``weight_codec``,
+``sample_frac``) are not read here, as in the JAX package: the fedsvc
+coordinator and workers (:mod:`repro_torch.fedsvc`) read them.  It
+records the JAX trainer's trace spans (``client.pull``, ``client.train_epoch``,
 ``client.push_compute``, ``round.aggregate``) on
 :data:`repro_torch.obsv.trace.TRACE`.  Its models are
 :class:`repro_torch.models.gnn.GNN` modules; FedAvg runs over their
@@ -260,17 +262,14 @@ def eval_arrays_for(g, sel: np.ndarray, device) -> dict:
 
 #: the trainer arguments the port does not take yet, by the
 #: ``ROADMAP.md`` Queue A item that ports them
-_UNPORTED_ITEM = {"transport_addrs": 3, "only_clients": 3, "shards": 4,
-                  "growth": 5}
+_UNPORTED_ITEM = {"shards": 4, "growth": 5}
 
 
-def _refuse_unported(st: Strategy, given: dict) -> None:
+def _refuse_unported(given: dict) -> None:
     """Raise for each configuration the port's trainer does not run,
     naming the ``ROADMAP.md`` Queue A item that ports it."""
     bad = [f"{name}=... (item {_UNPORTED_ITEM[name]})"
            for name, v in given.items() if v is not None]
-    if st.transport == "tcp":
-        bad.append("transport='tcp' (item 3)")
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch trainer yet (ROADMAP.md Queue A): "
@@ -304,9 +303,7 @@ class FederatedGNNTrainer:
         only_clients: list[int] | None = None,
         growth=None,
     ):
-        _refuse_unported(strategy, {
-            "transport_addrs": transport_addrs, "shards": shards,
-            "only_clients": only_clients, "growth": growth})
+        _refuse_unported({"shards": shards, "growth": growth})
         if model is not None and (model.conv != conv
                                   or model.num_layers != num_layers
                                   or model.hidden != hidden):
@@ -329,6 +326,13 @@ class FederatedGNNTrainer:
         # heterogeneous per-shard links (ShardedTransport); default: the
         # trainer-wide NetworkModel replicated per shard
         self.shard_nets = shard_nets
+        # live embed_server listeners, one per shard (Strategy.transport
+        # = "tcp", or inferred when addresses are given)
+        self.transport_addrs = transport_addrs
+        # shard-local mode (fedsvc workers): samplers, device arrays and
+        # exchange registrations for the owned clients only
+        self.only_clients = None if only_clients is None \
+            else sorted(int(c) for c in only_clients)
         self.seed = seed
         self.eval_max_edges = eval_max_edges
         self.device = torch.device(device)
@@ -352,7 +356,8 @@ class FederatedGNNTrainer:
 
     def _setup(self) -> None:
         st = self.strategy
-        self.owned = list(range(self.k))
+        self.owned = list(range(self.k)) if self.only_clients is None \
+            else self.only_clients
         self._build_shard_state()
         if st.shard_placement not in ("hash", "pull_frequency"):
             raise ValueError(
@@ -363,7 +368,8 @@ class FederatedGNNTrainer:
                 self.L, self.hidden, kind=st.transport,
                 num_shards=st.num_server_shards,
                 nets=self.shard_nets if self.shard_nets is not None
-                else self.net, device=self.device)
+                else self.net, addrs=self.transport_addrs, codec=st.codec,
+                device=self.device)
             if st.shard_placement == "pull_frequency":
                 if not isinstance(self.exchange, ShardedTransport):
                     raise ValueError(
@@ -413,10 +419,13 @@ class FederatedGNNTrainer:
             shards = self._build_shards(limit, retained_remote=retained)
         self.shards = shards
         assign_push_sets(shards, self.part)
-        self.push_rows = [push_rows(sh) for sh in shards]
-        # prefetch scores (§4.3) on the final expanded shard
-        self.prefetch_sets: list[np.ndarray] = []
-        for ci, sh in enumerate(shards):
+        # push rows and prefetch scores (§4.3, on the final expanded
+        # shard) for the owned clients only
+        self.push_rows: list[np.ndarray | None] = [None] * self.k
+        self.prefetch_sets: list[np.ndarray | None] = [None] * self.k
+        for ci in self.owned:
+            sh = shards[ci]
+            self.push_rows[ci] = push_rows(sh)
             if st.use_embeddings and st.prefetch_frac is not None:
                 scores = score_remote_nodes(sh, st.score_kind, self.L)
                 idx = top_fraction(scores, st.prefetch_frac,
@@ -425,7 +434,7 @@ class FederatedGNNTrainer:
                                    device=self.device)
             else:
                 idx = np.arange(len(sh.pull_nodes))
-            self.prefetch_sets.append(idx)
+            self.prefetch_sets[ci] = idx
 
     def _register_shard_nodes(self) -> None:
         """Register every shard's pull and push sets with the exchange."""
@@ -437,26 +446,37 @@ class FederatedGNNTrainer:
                 self.exchange.register(gids)
 
     def _build_client_state(self) -> None:
-        """Per-client training state: samplers, shard arrays on the
-        device, labels and zeroed embedding caches."""
+        """Per-client training state of the owned clients: samplers,
+        shard arrays on the device, labels and zeroed embedding caches
+        (None for a client another process owns)."""
         dev = self.device
-        self.samplers = [NeighborSampler(sh, self.fanout, self.L,
-                                         self.batch_size, seed=self.seed)
-                         for sh in self.shards]
-        self.shard_arrays = [shard_to_arrays(sh, dev) for sh in self.shards]
-        self.feats = [a["features"] for a in self.shard_arrays]
-        self.labels = [torch.from_numpy(np.asarray(sh.labels, np.int64))
-                       .to(dev) for sh in self.shards]
-        self._caches: list[list[torch.Tensor]] = [
-            [torch.zeros((max(1, sh.num_remote), self.hidden),
-                         dtype=torch.float32, device=dev)
-             for _ in range(self.L - 1)]
-            for sh in self.shards]
+        k = self.k
+        self.samplers: list[NeighborSampler | None] = [None] * k
+        self.shard_arrays: list[dict | None] = [None] * k
+        self.feats: list[torch.Tensor | None] = [None] * k
+        self.labels: list[torch.Tensor | None] = [None] * k
+        self._caches: list[list[torch.Tensor] | None] = [None] * k
+        for ci in self.owned:
+            sh = self.shards[ci]
+            self.samplers[ci] = NeighborSampler(
+                sh, self.fanout, self.L, self.batch_size, seed=self.seed)
+            self.shard_arrays[ci] = shard_to_arrays(sh, dev)
+            self.feats[ci] = self.shard_arrays[ci]["features"]
+            self.labels[ci] = torch.from_numpy(
+                np.asarray(sh.labels, np.int64)).to(dev)
+            self._caches[ci] = [
+                torch.zeros((max(1, sh.num_remote), self.hidden),
+                            dtype=torch.float32, device=dev)
+                for _ in range(self.L - 1)]
 
     def _build_eval_state(self) -> None:
         """The aggregation server's held-out test set: the whole graph,
         or past ``eval_max_edges`` a seeded uniform vertex sample whose
-        induced edges fit the budget."""
+        induced edges fit the budget.  Shard-local workers never
+        evaluate and skip it."""
+        if self.only_clients is not None:
+            self.eval_gids = self.eval_arrays = self.test_idx = None
+            return
         if self.g.num_edges > self.eval_max_edges:
             sel = sampled_eval_vertices(self.g, self.eval_max_edges,
                                         self.seed)
@@ -477,6 +497,13 @@ class FederatedGNNTrainer:
     def load_leaves(self, leaves) -> None:
         """Overwrite the global model from leaves in that order."""
         self.model.load_leaves(leaves)
+
+    def leaves_to_params(self, leaves) -> GNN:
+        """A copy of the global model holding ``leaves`` (the JAX
+        package's order): the model a fedsvc worker trains from."""
+        model = copy.deepcopy(self.model)
+        model.load_leaves(leaves)
+        return model
 
     def set_round_tau(self, round_idx: int, accuracies=None) -> None:
         """Apply the adaptive-τ schedule (Strategy.delta_schedule) for
@@ -562,14 +589,15 @@ class FederatedGNNTrainer:
 
     # -- lifecycle ---------------------------------------------------------------
 
-    def pretrain_round(self) -> None:
+    def pretrain_round(self, client_ids: list[int] | None = None) -> None:
         """§3.2.1: initialise push-node embeddings on the unexpanded local
         subgraphs (remote neighbours masked) and seed the server, through
         each client's own exchange client (its delta shadow and residuals
-        start from these rows)."""
+        start from these rows).  A fedsvc worker passes its own
+        ``client_ids``, so each process seeds exactly the rows it owns."""
         if self.exchange is None:
             return
-        for ci in self.owned:
+        for ci in (self.owned if client_ids is None else client_ids):
             push_bootstrap(self.model, self.shards[ci], self.shard_arrays[ci],
                            self.ex_clients[ci])
 
@@ -581,11 +609,16 @@ class FederatedGNNTrainer:
         if self.exchange is None:
             raise RuntimeError("export_for_serving needs an embedding-"
                                "sharing strategy (use_embeddings=True)")
-        return export_for_serving(self.model, self.shards, self.part,
-                                  self.exchange, self.strategy.codec,
-                                  device=self.device)
+        return export_for_serving(self.model,
+                                  [self.shards[ci] for ci in self.owned],
+                                  self.part, self.exchange,
+                                  self.strategy.codec, device=self.device)
 
     def evaluate(self, params: GNN | None = None) -> float:
+        if self.eval_arrays is None:
+            raise RuntimeError(
+                "shard-local trainer (only_clients=...) has no eval "
+                "graph; evaluation belongs to the coordinator")
         model = self.model if params is None else params
         outs = model.full_propagate(self.eval_arrays, None)
         pred = torch.argmax(outs[-1], dim=-1).cpu().numpy()
@@ -675,6 +708,10 @@ class FederatedGNNTrainer:
         return self.evaluate()
 
     def run_round(self, round_idx: int, cum_time: float) -> RoundStats:
+        if self.only_clients is not None:
+            raise RuntimeError(
+                "run_round needs every client; shard-local trainers drive "
+                "client_round through the fedsvc control plane")
         TRACE.set_context(round=round_idx)
         self.set_round_tau(round_idx)
         # pull-frequency shard rebalancing: after the first round's pulls

@@ -13,12 +13,15 @@ of the training, publish and serve paths routes through here:
   apply_push      — commit a planned push: store the rows, refresh the
                     delta shadow and residuals, record the log
 
-The transport's tables live on the device, so with the int8 codec pulls
-and pushes ride the fused surface: gather+encode on the resident table
-(``peek``) and decode+scatter of the planned payload (``apply_push``).
-Values come back as tensors on the transport's device.  The delta
-shadow and the error-feedback residuals live on the host
-(:mod:`repro_torch.exchange.delta`).
+The in-process transports' tables live on the device, so with the int8
+codec pulls and pushes ride the fused surface: gather+encode on the
+resident table (``peek``) and decode+scatter of the planned payload
+(``apply_push``).  A real wire (:class:`TcpTransport`) carries the codec
+bytes itself: its gather already crossed the wire once and its write
+encodes the raw rows, so the client neither round-trips a pull nor
+encodes a push a second time.  Values come back as tensors on the
+transport's device.  The delta shadow and the error-feedback residuals
+live on the host (:mod:`repro_torch.exchange.delta`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ class PushPlan:
     # form to the fused decode+scatter and never re-encodes; decoding it
     # equals layer_values bit-exactly
     payloads: list | None = None
+    # real-wire plans carry raw rows in layer_values (the socket does
+    # the encoding), so the decoded view EF needs rides separately
+    ef_decoded: list | None = None
 
 
 class ExchangeClient:
@@ -57,6 +63,13 @@ class ExchangeClient:
                  error_feedback: bool = False):
         self.transport = transport
         self.codec = get_codec(codec)
+        if transport.wire_is_real:
+            t_codec = getattr(transport, "codec", None)
+            if t_codec is not None and t_codec.name != self.codec.name:
+                raise ValueError(
+                    f"client codec {self.codec.name!r} != real-wire "
+                    f"transport codec {t_codec.name!r}: the wire would "
+                    "carry different bytes than the client accounts for")
         self.hidden = transport.hidden
         self.shared_layers = transport.num_layers - 1
         self.delta = None if delta_threshold is None else DeltaTracker(
@@ -72,17 +85,23 @@ class ExchangeClient:
         self.transport.register(global_ids)
 
     def _fused_int8(self) -> bool:
-        return self.codec.name == "int8"
+        """True when pulls and pushes ride the fused quantized surface:
+        the int8 codec over an in-process transport."""
+        return self.codec.name == "int8" and not self.transport.wire_is_real
 
     # -- pull side ---------------------------------------------------------
 
     def peek(self, global_ids: np.ndarray,
              layers: list[int] | None = None) -> list[torch.Tensor]:
-        """Table rows as seen after one wire crossing, no wire charge."""
+        """Table rows as seen after one wire crossing, no wire charge.  A
+        real wire already codec-encoded the gather on the socket: a
+        second round trip would quantize twice."""
         if self._fused_int8():
             payloads = self.transport.gather_quantized(global_ids, layers)
             return [self.codec.decode(p) for p in payloads]
         raw = self.transport.gather(global_ids, layers)
+        if self.transport.wire_is_real:
+            return raw
         return [self.codec.roundtrip(v) for v in raw]
 
     def pull(self, global_ids: np.ndarray, layers: list[int] | None = None
@@ -111,10 +130,12 @@ class ExchangeClient:
         wire only where the server's version differs from
         ``have_versions`` (-1 = never seen), and only those rows are
         charged.  Returns ``(versions, stale_pos, stale_values, time)``
-        with stale_values after the codec roundtrip."""
+        with stale_values after the wire (a codec round trip on modelled
+        transports)."""
         ver, stale, vals = self.transport.gather_versioned(
             global_ids, have_versions, layers)
-        vals = [self.codec.roundtrip(v) for v in vals]
+        if not self.transport.wire_is_real:
+            vals = [self.codec.roundtrip(v) for v in vals]
         n_layers = len(vals) if layers is None else len(list(layers))
         t = self.transport.account(np.asarray(global_ids)[stale], n_layers,
                                    self.bytes_per_scalar)
@@ -144,8 +165,15 @@ class ExchangeClient:
                 global_ids = global_ids[sel]
                 host_raw = [v[sel] for v in host_raw]
             raw = [torch.from_numpy(v).to(dev) for v in host_raw]
-        payloads = None
-        if self._fused_int8():
+        payloads = ef_decoded = None
+        if self.transport.wire_is_real:
+            # the socket encodes the write and the server decodes those
+            # bytes; EF still needs the decoded view locally (codecs are
+            # deterministic, so it equals what the server stores)
+            decoded = raw
+            if self.ef is not None:
+                ef_decoded = [self.codec.roundtrip(v) for v in raw]
+        elif self._fused_int8():
             payloads = [self.codec.encode(v) for v in raw]
             decoded = [self.codec.decode(p) for p in payloads]
         else:
@@ -156,7 +184,8 @@ class ExchangeClient:
         return PushPlan(global_ids=global_ids, layer_values=decoded,
                         raw_values=raw if host_raw is None else host_raw,
                         transfer_time=t, n_selected=len(global_ids),
-                        n_total=n_total, payloads=payloads)
+                        n_total=n_total, payloads=payloads,
+                        ef_decoded=ef_decoded)
 
     def apply_push(self, plan: PushPlan) -> float:
         """Commit a planned push: store what the server decodes, refresh
@@ -171,8 +200,10 @@ class ExchangeClient:
         if self.delta is not None:
             self.delta.commit(plan.global_ids, plan.raw_values)
         if self.ef is not None:
+            seen = plan.layer_values if plan.ef_decoded is None \
+                else plan.ef_decoded
             self.ef.commit(plan.global_ids, plan.raw_values,
-                           [v.cpu().numpy() for v in plan.layer_values])
+                           [v.cpu().numpy() for v in seen])
         return self.transport.account(plan.global_ids, self.shared_layers,
                                       self.bytes_per_scalar)
 

@@ -8,7 +8,8 @@ row-independent and deterministic, so splitting rows across servers
 never changes what the receiver reconstructs.
 
 Payloads stay on the device of their input: on the card the int8 codec
-runs the hand-written encode/decode kernels.
+runs the hand-written encode/decode kernels.  :func:`encode_leaves` /
+:func:`decode_leaves` are the weight wire's leaf-list form.
 
 Codecs:
   fp32 — passthrough, 4 B/scalar
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import abc
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -123,3 +125,54 @@ def get_codec(name: str | WireCodec) -> WireCodec:
         raise ValueError(
             f"unknown codec {name!r}; available: {available_codecs()}"
         ) from None
+
+
+# -- leaf-list form (the weight wire) -----------------------------------------
+#
+# The federated weight plane moves flat leaf lists whose shapes vary per
+# leaf, so each leaf is flattened to a single (1, size) row and run
+# through the same codec: for int8 one scale per leaf.  The codec runs
+# on ``device`` (on the card the int8 encode and decode kernels); the
+# wire tensors and the decoded leaves are host arrays that ride the
+# control plane's ``wire.build_tensors`` framing, as in the JAX package.
+
+def encode_leaves(codec: str | WireCodec, leaves, *, device: str = "cuda"
+                  ) -> tuple[list, list]:
+    """fp32 leaf list → (wire tensors, shapes).
+
+    ``shapes`` travel beside the tensors (the JSON header of a
+    control-plane RPC) so :func:`decode_leaves` can restore the leaf
+    shapes; the tensor list holds ``codec.wire_arrays`` arrays per leaf
+    in leaf order."""
+    codec = get_codec(codec)
+    tensors: list = []
+    shapes: list[list[int]] = []
+    for leaf in leaves:
+        leaf = np.asarray(leaf, np.float32)
+        shapes.append([int(d) for d in leaf.shape])
+        row = ops.host_to_device(leaf.reshape(1, -1), device)
+        payload = codec.encode(row)
+        parts = payload if isinstance(payload, tuple) else (payload,)
+        tensors.extend(p.cpu().numpy() for p in parts)
+    return tensors, shapes
+
+
+def decode_leaves(codec: str | WireCodec, tensors, shapes, *,
+                  device: str = "cuda") -> list[np.ndarray]:
+    """Inverse of :func:`encode_leaves`: the fp32 leaves the receiver
+    reconstructs (bit-identical to the sender's local round trip —
+    codecs are deterministic)."""
+    codec = get_codec(codec)
+    per = codec.wire_arrays
+    if len(tensors) != per * len(shapes):
+        raise ValueError(
+            f"{codec.name} leaf payload carries {len(tensors)} arrays "
+            f"for {len(shapes)} leaves (expected {per} per leaf)")
+    out = []
+    for i, shape in enumerate(shapes):
+        block = [ops.host_to_device(np.asarray(t), device)
+                 for t in tensors[per * i: per * (i + 1)]]
+        payload = tuple(block) if per > 1 else block[0]
+        out.append(codec.decode(payload).cpu().numpy()
+                   .astype(np.float32, copy=False).reshape(shape))
+    return out

@@ -1,6 +1,7 @@
 """Delta pushes + error feedback: client-side state that shapes pushes.
 
-Copy of ``repro/exchange/delta.py`` (the row forms).  The state lives on
+Copy of ``repro/exchange/delta.py`` (the row forms, and the weight
+wire's leaf form :class:`LeafErrorFeedback`).  The state lives on
 the host in numpy, as the JAX client keeps it, so the τ selection and
 the residuals are bit-identical to the JAX package's; a push with τ or
 error feedback on copies its rows to the host once.
@@ -175,3 +176,45 @@ class ErrorFeedback(GidRowTable):
     @property
     def max_abs_residual(self) -> float:
         return float(np.abs(self._live).max()) if len(self._slot) else 0.0
+
+
+class LeafErrorFeedback:
+    """:class:`ErrorFeedback`, leaf-list form: the weight wire's EF (copy
+    of ``repro/exchange/delta.py``'s).
+
+    The weight plane's unit of exchange is a whole leaf list (one model
+    delta per client per round), so the residual is a parallel list of
+    host arrays.  Same contract as the row form:
+
+        compensated = delta + residual
+        wire        = encode(compensated)
+        residual'   = compensated − decode(wire)
+    """
+
+    def __init__(self):
+        self._res: list[np.ndarray] | None = None
+
+    def compensate(self, leaves) -> list[np.ndarray]:
+        """delta leaves + carried residual (zero before the first
+        commit).  Pure read — residuals change only on :meth:`commit`."""
+        if self._res is None:
+            return [np.asarray(l, np.float32) for l in leaves]
+        return [np.asarray(l, np.float32) + r
+                for l, r in zip(leaves, self._res)]
+
+    def commit(self, compensated, decoded) -> None:
+        """Store ``compensated − decoded`` once the push landed."""
+        self._res = [np.asarray(c, np.float32) - np.asarray(d, np.float32)
+                     for c, d in zip(compensated, decoded)]
+
+    def reset(self) -> None:
+        """Drop the carry (a re-joined worker starts from a fresh model,
+        so the old residual no longer corresponds to anything shipped)."""
+        self._res = None
+
+    @property
+    def max_abs_residual(self) -> float:
+        if not self._res:
+            return 0.0
+        return max(float(np.abs(r).max()) if r.size else 0.0
+                   for r in self._res)

@@ -14,7 +14,8 @@ available:
       modelled wall time is the max over shards while bytes and RPCs
       accumulate per shard.
 
-The TCP transport comes with the wire (``ROADMAP.md`` Queue A item 3).
+The third, :class:`~repro_torch.exchange.socket_transport.TcpTransport`,
+moves the codec bytes across live TCP embedding-server shards.
 
 Time accounting is split into the pure :meth:`Transport.transfer_time`
 query (a push is priced when planned, applied later) and
@@ -40,6 +41,12 @@ class Transport(abc.ABC):
     num_layers: int
     hidden: int
     device: torch.device
+
+    #: True when :meth:`gather` / :meth:`write` move codec bytes across
+    #: a real wire (TcpTransport): ExchangeClient then skips its
+    #: simulated codec round trip, keeping the numerics bit-identical
+    #: to the modelled transports.
+    wire_is_real: bool = False
 
     @abc.abstractmethod
     def register(self, global_ids: np.ndarray) -> None: ...
@@ -96,7 +103,8 @@ class Transport(abc.ABC):
         total = TransferLog()
         for lg in self.shard_logs:
             total.add(bytes=lg.bytes, rpcs=lg.rpcs,
-                      embeddings=lg.embeddings, seconds=lg.seconds)
+                      embeddings=lg.embeddings, seconds=lg.seconds,
+                      measured_seconds=lg.measured_seconds)
         return total
 
     @property
@@ -424,20 +432,32 @@ class ShardedTransport(HashShardedWire, Transport):
 def make_transport(num_layers: int, hidden: int, *, kind: str = "auto",
                    num_shards: int = 1,
                    nets: list[NetworkModel] | NetworkModel | None = None,
+                   addrs=None, codec: str = "fp32",
                    device: str = "cuda") -> Transport:
-    """The transport a deployment uses, its tables on ``device``.
+    """The transport a deployment uses, its rows on ``device``.
 
     ``kind`` selects the wire: ``"inprocess"`` (one modelled link, the
-    seed topology) or ``"sharded"`` (hashed in-process shards with
-    per-shard modelled links; ``nets`` one model or one per shard).  The
-    default ``"auto"`` infers ``"sharded"`` from ``num_shards`` > 1, else
-    ``"inprocess"``.  ``"tcp"`` (live embedding-server shards) is not
-    ported yet."""
+    seed topology), ``"sharded"`` (hashed in-process shards with
+    per-shard modelled links; ``nets`` one model or one per shard) or
+    ``"tcp"`` (live embedding-server shards at ``addrs``, speaking the
+    :mod:`repro_torch.exchange.wire` protocol with ``codec`` payloads).
+    The default ``"auto"`` infers: addresses given → tcp, ``num_shards``
+    > 1 → sharded, else in-process."""
     if kind == "auto":
-        kind = "sharded" if num_shards > 1 else "inprocess"
+        kind = "tcp" if addrs else \
+            ("sharded" if num_shards > 1 else "inprocess")
     if kind == "tcp":
-        raise ValueError("kind='tcp' is not ported yet (ROADMAP.md Queue A "
-                         "item 3: the TCP wire and the embed server)")
+        from .socket_transport import TcpTransport   # lazy: socket machinery
+        if not addrs:
+            raise ValueError("kind='tcp' needs addrs=[(host, port), ...] "
+                             "— one embed_server listener per shard")
+        if num_shards > 1 and len(addrs) != num_shards:
+            raise ValueError(f"num_shards={num_shards} but {len(addrs)} "
+                             "tcp addresses given")
+        return TcpTransport(num_layers, hidden, addrs, codec=codec,
+                            nets=nets, device=device)
+    if addrs:
+        raise ValueError(f"addrs only apply to kind='tcp', got {kind!r}")
     if kind == "inprocess":
         if num_shards > 1:
             raise ValueError("kind='inprocess' is single-shard; use "

@@ -211,8 +211,9 @@ def merge_snapshots(snaps: list[dict],
 
     ``offsets[i]`` (seconds, added to process i's timestamps) aligns
     each process's private ``perf_counter`` clock onto the merger's —
-    the scrape-time handshake of the wire telemetry measures them
-    (``ROADMAP.md`` Queue A item 3 ports it).  Each process gets a deterministic synthetic pid (its index;
+    the scrape-time handshake of the wire telemetry
+    (:mod:`repro_torch.obsv.teleserve`) measures them.  Each process
+    gets a deterministic synthetic pid (its index;
     Chrome pids are just track keys), so merging the same snapshots
     twice yields byte-identical output even when the sources are
     threads of one OS process sharing a real pid."""

@@ -647,3 +647,44 @@ def test_sharded_fused_exchange_equals_one_server(cuda, num_shards, empty):
         gids, np.full(len(gids), -1))[0])
     if empty is not None:
         assert many.shards[empty].num_embeddings_stored == 0
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16", "int8"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_tcp_on_the_card_equals_a_cpu_server(cuda, codec, shards):
+    """The same register, write, gather and versioned-gather RPCs over
+    loopback TCP, once with the embed servers' tables and the client on
+    the card (the int8 encode and decode kernels on the client, the
+    fused gather + encode and decode + scatter on the servers) and once
+    on the CPU: every gather bit-equal, every payload byte-equal."""
+    from repro_torch.exchange.socket_transport import TcpTransport
+    from repro_torch.launch.embed_server import serve_in_thread
+
+    rng = np.random.default_rng(5)
+    gids = rng.permutation(5000)[:1537]
+    vals = [rng.standard_normal((len(gids), 32)).astype(np.float32)
+            for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        hs = [serve_in_thread(3, 32, device=dev) for _ in range(shards)]
+        try:
+            t = TcpTransport(3, 32, [h.address for h in hs], codec=codec,
+                             device=dev)
+            t.register(gids)
+            t.write(gids, [torch.from_numpy(v).to(dev) for v in vals])
+            got = [v.cpu() for v in t.gather(gids)]
+            got += [v.cpu() for v in t.gather(gids[::3], [2])]
+            have = np.where(np.arange(len(gids)) % 2 == 0, -1, 1)
+            ver, stale, sv = t.gather_versioned(gids, have, [1])
+            out[dev] = (got + [sv[0].cpu()], ver, stale,
+                        [r.payload_bytes for r in t.rpc_samples])
+            t.close()
+        finally:
+            for h in hs:
+                h.stop()
+    (a, va, sa, pa), (b, vb, sb, pb) = out["cuda"], out["cpu"]
+    for x, y in zip(a, b):
+        assert x.device.type == "cpu" and torch.equal(x, y)
+    np.testing.assert_array_equal(va, vb)
+    np.testing.assert_array_equal(sa, sb)
+    assert pa == pb

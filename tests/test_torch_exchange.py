@@ -158,15 +158,23 @@ def test_client_matches(codec, device_tables):
 
 def test_training_knobs_wait_for_the_training_slice():
     """The training knobs are ported: τ and EF build their host-side
-    trackers.  The TCP transport still waits."""
+    trackers.  ``make_transport`` refuses a TCP wire without addresses,
+    a shard count other than the address count, and addresses for
+    another kind, with the JAX package's ValueErrors."""
     tt = tmake_transport(3, H, device="cpu")
     c = TClient(tt, "int8", delta_threshold=0.1, error_feedback=True)
     assert c.delta.tau == 0.1 and c.delta.layers == 2
     assert c.ef.max_abs_residual == 0.0
     with pytest.raises(ValueError):
         TClient(tt, "int8", delta_threshold=-1.0)
-    with pytest.raises(ValueError):
-        tmake_transport(3, H, kind="tcp", device="cpu")
+    for kw in (dict(kind="tcp"), dict(kind="tcp", num_shards=3,
+                                      addrs=[":1", ":2"]),
+               dict(kind="sharded", num_shards=2, addrs=[":1", ":2"])):
+        with pytest.raises(ValueError) as ours:
+            tmake_transport(3, H, device="cpu", **kw)
+        with pytest.raises(ValueError) as theirs:
+            jmake_transport(3, H, **kw)
+        assert str(ours.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("codec", ["fp32", "int8"])

@@ -9,9 +9,11 @@ import pathlib
 import pytest
 
 from repro_torch.core import embedding_server, federated, pruning, serving
-from repro_torch.exchange import transport
+from repro_torch.exchange import socket_transport, transport
+from repro_torch.fedsvc import coordinator, runtime, worker
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
+from repro_torch.launch import embed_server
 from repro_torch.models import gnn, layers, lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -57,6 +59,10 @@ def test_scan_catches_a_jax_import(tmp_path):
     embedding_server.EmbeddingServer.__init__, gnn.init_gnn,
     gnn.from_jax_leaves, lm.init_params, lm.from_jax_params, lm.init_cache,
     layers.init_kv_cache, serving.ContinuousBatcher.__init__,
+    socket_transport.TcpTransport.__init__, embed_server.serve_in_thread,
+    embed_server.serve, runtime.RunConfig.build_trainer,
+    runtime.EvalHarness.__init__, runtime.make_coordinator_state,
+    worker.FedWorker.__init__, coordinator.CoordinatorState.__init__,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
