@@ -109,7 +109,7 @@ Phases, each of which fails the run:
    must have launched 256 × 32 times.  Tokens/s, step p50 / p99 (CUDA
    events), the decode attention's device time per step, the device's
    idle share over 8 profiled steps and the peak memory are printed.
-   Then ``ContinuousBatcher`` with 8 lanes serves 32 requests of 64-token
+   Then ``ContinuousBatcher`` with 8 lanes serves 16 requests of 64-token
    prompts and 64 new tokens each: every request completes once with all
    its tokens.
 12. LM reference: the same model in fp32 on the card and on the CPU
@@ -166,8 +166,9 @@ Phases, each of which fails the run:
    trips, 1 B a scalar plus 4 B a leaf; rows 1 and 2 at its largest leaf, (1, 3072), timed
    (``weight_leaf``).  (b) As processes, through the launchers: two
    ``embed_server``s, a ``fed_coordinator`` and two ``fed_worker``s
-   (clients 0-1, 2-3) at scale 8 (32,000 vertices: at 58 the phase
-   took 208 s), one epoch, one round, tracing on,
+   (clients 0-1, 2-3) at scale 4 (16,000 vertices: at 58 the phase
+   took 208 s, and 8 left no room for steps 15-16), one epoch, one
+   round, tracing on,
    each address read from the child's "listening on" line (port 0),
    every wait bounded; every child exits 0, the coordinator prints
    DONE, and one ``obs_dump`` scrape of the five endpoints holds each
@@ -176,6 +177,41 @@ Phases, each of which fails the run:
    push seconds (measured, and modelled for the wire), measured against
    modelled RPC seconds, the fitted ``NetworkModel`` and the span
    seconds by name; the merged trace goes to ``build/tcp_trace.json``.
+15. The graph store (after step 14).  ``launch.build_store`` builds the
+   reddit preset at scale 8 (32,000 vertices) as an mmap store in a
+   child process, with its LDG partition and P_4 shards for 4 clients
+   baked.  Fails unless every array equals ``make_graph``'s byte for
+   byte, the partition is ``ldg_partition``'s and each baked shard equals
+   ``make_client_shards``' over it (push sets reciprocal); one round of
+   ``RunConfig(graph="store:...")`` (OPG + int8 + degree scores,
+   GraphConv L=3 hidden 32, fanout 5, batch 64, each client cut to 16
+   minibatches) on the card over the prebuilt mmap'd shards equals the
+   in-memory trainer over the same partition bit for bit (leaves, loss,
+   accuracy), with every training kernel launched (counters zeroed before
+   the store trainer is built, read after its round); a shard-local
+   trainer (``only_clients=[1]``) holds only client 1's shard, mmap'd,
+   and trains it.  It prints the store's bytes, the build's stats line,
+   LDG's and BFS's edge cuts and the set-up seconds with and without
+   prebuilt shards.
+16. Serving over TCP.  (b)'s processes start first and train while (a)
+   runs.  (a) In threads: two port embed servers;
+   ``build_plane_from_cfg`` trains phase 15's RunConfig over the store
+   with their addresses (each client's epoch cut to 16 minibatches, as
+   in step 15), exports, and the plane, whose cache refreshes through
+   ``PT_OP_VGATHER``, goes behind ``serve_in_thread``; four
+   ``GnnServeClient`` threads send 512 Zipf queries each (half at
+   threshold 1.0) in RPCs of 32.  Fails unless the TCP trainer's leaves
+   equal phase 15's store-backed trainer's (the same RunConfig in
+   process) and every answer equals that trainer's exported plane's;
+   the threshold-1.0 answers equal ``offline_predict``; SSTATS and an
+   ``obs_dump`` scrape count the queries and PREDICT RPCs sent; and rows
+   2 and 3 launched once for each non-empty shard layer of the VGATHER
+   RPCs (counters zeroed before the training and again before the
+   queries).  It prints queries/s and RPC p50 / p99 beside phase 4's
+   in-process figures.  (b) As processes: two ``embed_server``
+   launchers and ``gnn_serve --graph store:...`` with their addresses
+   (run by ``CUT_GNN_SERVE``, which cuts its epochs the same way); the
+   same queries must get (a)'s answers, and every process must exit 0.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -215,7 +251,7 @@ LM_ARCH = "smollm-360m"       # the serve launcher's default, full width
 LM_LANES = 8
 LM_DECODE_STEPS = 256         # the ring wraps after the first 64
 LM_PROFILED_STEPS = 8
-LM_REQUESTS = 32              # batcher: 64-token prompts, 64 new tokens
+LM_REQUESTS = 16              # batcher: 64-token prompts, 64 new tokens
 LM_PROMPT = 64
 LM_NEW = 64
 LM_REF_STEPS = 8              # card vs CPU, fp32, teacher-forced
@@ -225,8 +261,12 @@ SHARDED_EPOCHS = 2            # the overlapped push runs after epoch 1
 SHARDED_QUERIES = 512
 TCP_THREAD_SCALE = 1.0        # phase 14a: 4,000 vertices
 TCP_WEIGHT_SCALE = 0.5        # its weight-codec run: 2,000 vertices
-TCP_PROCESS_SCALE = 8.0       # phase 14b: 32,000 vertices (cut from 58)
+TCP_PROCESS_SCALE = 4.0       # phase 14b: 16,000 vertices (cut from 58)
 TCP_EPOCHS = 2                # local epochs a round in 14a (14b: one)
+STORE_SCALE = 8.0             # phases 15-16: the store, 32,000 vertices
+STORE_STEPS = 16              # minibatches a client in phase 15's round
+SERVE_TCP_QUERIES = 512       # Zipf queries a client in phase 16a
+SERVE_TCP_RPC = 32            # queries a PREDICT RPC there
 
 
 class SmokeFailure(Exception):
@@ -980,7 +1020,7 @@ def train_slice_phase(torch, np, g, part) -> tuple[dict, object, list]:
         with contextlib.ExitStack() as stack:
             T = fed.FederatedGNNTrainer
             for owner, name, key, args in (
-                    (fed, "make_client_shards", "shards_s", None),
+                    (fed, "build_client_shards", "shards_s", None),
                     (fed, "score_remote_nodes", "scores_s", None),
                     (fed, "top_fraction", "top_fraction_s", topf_args),
                     (T, "_build_client_state", "client_state_s", None),
@@ -2686,8 +2726,10 @@ class Child:
     def __init__(self, name: str, argv: list, env: dict, stdin=None):
         self.name = name
         self.t0 = time.perf_counter()
+        # argv: a module and its flags, or "-c", a body and its flags
+        cmd = argv if argv[0] == "-c" else ["-m"] + argv
         self.proc = subprocess.Popen(
-            [sys.executable, "-m"] + argv, env=env, text=True,
+            [sys.executable] + cmd, env=env, text=True,
             stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         self.lines: list[str] = []
         self._cv = threading.Condition()
@@ -2850,6 +2892,436 @@ def tcp_process_phase(torch, np, dev: str = DEV,
     }
 
 
+# -- phase 15: the graph store ------------------------------------------------
+
+def store_config(path, **kw):
+    """Phases 15 and 16's RunConfig over the store at ``path``: 4 clients,
+    OPG + int8 + degree scores, GraphConv L=3 hidden 32 (fanout 5, batch
+    64: the RunConfig defaults), one round of one epoch."""
+    from repro_torch.fedsvc.runtime import RunConfig
+
+    return RunConfig(graph=f"store:{path}", num_clients=4, strategy="OPG",
+                     overrides={"codec": "int8", "score_kind": "degree"},
+                     epochs_per_round=1, rounds=1, seed=0, **kw)
+
+
+#: ``python -c`` body that runs the ``gnn_serve`` launcher with every
+#: sampler epoch cut to its first ``%d`` minibatches, as in the process
+CUT_GNN_SERVE = (
+    "import itertools, runpy, sys\n"
+    "from repro_torch.graphs.sampler import NeighborSampler as S\n"
+    "epoch = S.epoch\n"
+    "S.epoch = lambda self: itertools.islice(epoch(self), %d)\n"
+    "sys.argv[0] = 'gnn_serve'\n"
+    "runpy.run_module('repro_torch.launch.gnn_serve', run_name='__main__')\n")
+
+
+@contextlib.contextmanager
+def cut_epochs(steps: int):
+    """Within the block, every sampler epoch yields its first ``steps``
+    minibatches (``CUT_GNN_SERVE`` does the same in a child)."""
+    import itertools
+
+    from repro_torch.graphs.sampler import NeighborSampler
+
+    epoch = NeighborSampler.epoch
+    NeighborSampler.epoch = \
+        lambda self: itertools.islice(epoch(self), steps)
+    try:
+        yield
+    finally:
+        NeighborSampler.epoch = epoch
+
+
+def tree_nbytes(root: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def store_phase(torch, np, dev: str = DEV, scale: float = STORE_SCALE,
+                steps: int = STORE_STEPS) -> tuple[dict, dict, str, object]:
+    """15: the reddit preset at ``scale`` built as an mmap store by the
+    ``build_store`` launcher in a child process (LDG partition, P_4 shards
+    for 4 clients), held byte for byte to ``make_graph`` and to
+    ``make_client_shards`` over the same partition; then one round (each
+    client's epoch cut to ``steps`` minibatches) of ``RunConfig(graph=
+    "store:...")`` on the card, over the prebuilt mmap'd shards, against
+    the in-memory trainer over the same partition (leaves, losses and
+    accuracy bit-equal), and a shard-local trainer that mmaps only client
+    1's shard.  Returns the measurements, the store-backed window's
+    launches, the store's directory and the store-backed trainer."""
+    import shutil
+
+    from repro_torch.core.federated import FederatedGNNTrainer, assign_push_sets
+    from repro_torch.graphs import (bfs_partition, edge_cut,
+                                    make_client_shards, make_graph)
+    from repro_torch.graphstore import ldg_partition, open_store
+    from repro_torch.kernels import ops
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    root = pathlib.Path(__file__).resolve().parent
+    out = root / "build" / f"store_reddit_{scale:g}"
+    shutil.rmtree(out, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.perf_counter()
+    child = Child("build_store", ["repro_torch.launch.build_store", "--out",
+                                  str(out), "--preset", "reddit", "--scale",
+                                  str(scale), "--graph-seed", "0", "--seed",
+                                  "0", "--clients", "4", "--retention", "4"],
+                  env)
+    code = child.finish(600)
+    build_wall = time.perf_counter() - t0
+    check(code == 0, "15: build_store exited %s:\n%s" % (
+        code, "\n".join(str(x) for x in child.lines[-20:])))
+    stats = json.loads([ln for ln in child.lines
+                        if ln and ln.startswith("{")][-1])
+    st = open_store(str(out))
+
+    # the store: the in-memory generator's arrays, byte for byte
+    t0 = time.perf_counter()
+    g = make_graph("reddit", scale=scale, seed=0)
+    make_s = time.perf_counter() - t0
+    for f in ("indptr", "indices", "features", "labels", "train_mask"):
+        a, b = getattr(st, f), getattr(g, f)
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and np.array_equal(a, b), f"15: the store's {f} differs "
+                                         "from make_graph's")
+    check(st.num_classes == g.num_classes, "15: num_classes differs")
+    part = st.load_partition(4, 0)
+    t0 = time.perf_counter()
+    check(part is not None and np.array_equal(
+        part, ldg_partition(g, 4, seed=0)), "15: the baked partition is "
+                                            "not LDG's")
+    ldg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mem = make_client_shards(g, part, retention_limit=4, seed=0)
+    assign_push_sets(mem, part)
+    shard_mem_s = time.perf_counter() - t0
+    fields = ("indptr", "indices", "global_ids", "features", "labels",
+              "train_mask", "pull_nodes", "push_nodes", "all_pull_nodes")
+    for sh in mem:
+        baked = st.load_shard(sh.client_id, 4, 0, 4)
+        for f in fields:
+            check(np.array_equal(getattr(baked, f), getattr(sh, f)),
+                  f"15: baked shard {sh.client_id} {f} differs from "
+                  "make_client_shards'")
+    del mem
+    bfs = bfs_partition(g, 4, seed=0)
+    cuts = {"ldg": edge_cut(g, part), "bfs": edge_cut(g, bfs)}
+
+    # training off the store (prebuilt shards) against the in-memory graph
+    cfg = store_config(out)
+    runs, trainers = {}, {}
+    ops.reset_launch_counts()
+    sync()
+    with cut_epochs(steps):
+        for name in ("store", "memory"):
+            t0 = time.perf_counter()
+            if name == "store":
+                tr = cfg.build_trainer(device=dev)
+                check(tr._prebuilt_shards is not None and all(
+                    isinstance(sh.features, np.memmap) for sh in tr.shards),
+                    "15: the store trainer did not take the prebuilt shards")
+            else:
+                tr = FederatedGNNTrainer(g, 4, cfg.build_strategy(),
+                                         part=part, epochs_per_round=1,
+                                         seed=0, device=dev)
+            sync()
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            s = tr.train(1)[0]
+            sync()
+            runs[name] = {"setup_s": setup_s,
+                          "round_s": time.perf_counter() - t0,
+                          "accuracy": s.accuracy, "loss": s.train_loss,
+                          "leaves": tr.params_leaves()}
+            if name == "store":
+                launches = ops.launch_counts()
+            trainers[name] = tr
+    del trainers["memory"]
+    a, b = runs["store"], runs["memory"]
+    check(a["accuracy"] == b["accuracy"] and a["loss"] == b["loss"],
+          f"15: store round {a['accuracy']}, {a['loss']} != in-memory "
+          f"{b['accuracy']}, {b['loss']}")
+    check(all(np.array_equal(x, y) for x, y in zip(a["leaves"], b["leaves"])),
+          "15: the store trainer's leaves differ from the in-memory one's")
+    check(0.0 <= a["accuracy"] <= 1.0 and np.isfinite(a["loss"]),
+          f"15: accuracy {a['accuracy']}, loss {a['loss']}")
+    if dev == "cuda":
+        for name in TRAIN_KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"15: kernel {name} never launched off the store")
+
+    # a shard-local worker: only client 1's shard, mmap'd
+    t0 = time.perf_counter()
+    local = cfg.build_trainer(only_clients=[1], device=dev)
+    sync()
+    local_setup = time.perf_counter() - t0
+    check(local.shards[0] is None and local.samplers[0] is None
+          and isinstance(local.shards[1].features, np.memmap)
+          and local.eval_arrays is None, "15: the shard-local trainer "
+                                         "holds more than its shard")
+    for f in ("indptr", "indices", "global_ids", "pull_nodes"):
+        check(np.array_equal(getattr(local.shards[1], f),
+                             getattr(trainers["store"].shards[1], f)),
+              f"15: the shard-local trainer's {f} differs")
+    with cut_epochs(steps):
+        local.pretrain_round()
+        res = local.client_round(1)
+    sync()
+    check(np.isfinite(res.loss), f"15: shard-local loss {res.loss}")
+    del local
+    return {
+        "scale": scale, "vertices": st.num_vertices, "edges": st.num_edges,
+        "store_bytes": tree_nbytes(out),
+        "graph_bytes": sum((out / f).stat().st_size for f in os.listdir(out)
+                           if f.endswith(".npy")),
+        "build_child_wall_s": build_wall, "build": stats,
+        "make_graph_s": make_s, "ldg_s": ldg_s,
+        "shards_in_memory_s": shard_mem_s,
+        "edge_cut": cuts, "part_sizes": np.bincount(part).tolist(),
+        "steps_per_client": steps,
+        "setup_s": {"prebuilt_shards": a["setup_s"],
+                    "in_memory": b["setup_s"],
+                    "shard_local_client_1": local_setup},
+        "round_s": {"store": a["round_s"], "in_memory": b["round_s"]},
+        "accuracy": a["accuracy"], "loss": a["loss"],
+        "shard_local_loss": res.loss,
+    }, launches, str(out), trainers["store"]
+
+
+# -- phase 16: serving over TCP -----------------------------------------------
+
+SERVE_KW = dict(cache_rows=100_000, serve_fanout=10, batch_size=64,
+                depth_schedule=[1, 3])
+
+
+def serve_tcp_phase(torch, np, store: str, ref_trainer, dev: str = DEV,
+                    per_client: int = SERVE_TCP_QUERIES,
+                    steps: int = STORE_STEPS) -> tuple[dict, dict, dict]:
+    """16: serving phase 15's store over TCP.  (b)'s processes start
+    first, two ``embed_server`` launchers and then ``gnn_serve --graph
+    store:...`` with their addresses (its epochs cut to ``steps``
+    minibatches by ``CUT_GNN_SERVE``), and train while (a) runs: two port
+    embed servers in threads, ``build_plane_from_cfg`` with their
+    addresses (the plane's cache refreshes through PT_OP_VGATHER) behind
+    ``serve_in_thread``, and four ``GnnServeClient`` threads sending
+    ``per_client`` Zipf queries each (half at threshold 1.0) in RPCs of
+    SERVE_TCP_RPC, held to phase 15's trainer (the same RunConfig and
+    cut, in process) and its exported plane.  Then (b) gets the same
+    queries and must give (a)'s answers, and every process must exit 0.
+    Returns (a)'s measurements and launches (training and serving
+    windows), and (b)'s measurements."""
+    from repro_torch.exchange import wire
+    from repro_torch.exchange.socket_transport import TcpTransport, parse_address
+    from repro_torch.gnnserve import (GnnServeClient, build_serving,
+                                      serve_in_thread)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import embed_server, obs_dump
+    from repro_torch.launch.gnn_serve import build_plane_from_cfg
+    from repro_torch.obsv.metrics import REGISTRY
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    children: list[Child] = []
+    servers: list = []
+    try:
+        t_b = time.perf_counter()
+        embeds = [Child(f"embed{i}", ["repro_torch.launch.embed_server",
+                                      "--port", "0", "--device", dev], env)
+                  for i in range(2)]
+        children += embeds
+        addrs = [c.wait_line("embed_server listening on", 120).split()[3]
+                 for c in embeds]
+        serve = Child("gnn_serve", [
+            "-c", CUT_GNN_SERVE % steps, "--port", "0", "--graph",
+            f"store:{store}", "--clients", "4", "--strategy", "OPG", "--set",
+            "codec=int8", "--set", "score_kind=degree", "--epochs", "1",
+            "--rounds", "1", "--seed", "0", "--cache-rows", "100000",
+            "--serve-fanout", "10", "--serve-batch", "64",
+            "--depth-schedule", "1,3", "--device", dev]
+            + sum((["--embed", a] for a in addrs), []), env)
+        children.append(serve)
+
+        # (a) in threads
+        t0 = time.perf_counter()
+        ref_plane = build_serving(ref_trainer.export_for_serving(),
+                                  device=dev, **SERVE_KW)
+        sync()
+        ref_s = time.perf_counter() - t0
+        servers = [embed_server.serve_in_thread(3, 32, device=dev)
+                   for _ in range(2)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with cut_epochs(steps):
+            tr, plane = build_plane_from_cfg(
+                store_config(store, embed_addrs=[f"{h.host}:{h.port}"
+                                                 for h in servers]),
+                quiet=True, device=dev, **SERVE_KW)
+        sync()
+        build_s = time.perf_counter() - t0
+        train_launches = ops.launch_counts()
+        check(isinstance(tr.exchange, TcpTransport),
+              f"16a: the plane's transport is {type(tr.exchange).__name__}")
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(tr.params_leaves(), ref_trainer.params_leaves())),
+              "16a: training over TCP differs from phase 15's round")
+        n = 4 * per_client
+        vids, thrs = zipf_queries(np, len(plane.part), n, 21)
+        before_samples = len(tr.exchange.rpc_samples)
+        rpcs_before = REGISTRY.snapshot("pt_gnnserve.").get(
+            "pt_gnnserve.predict_rpcs", 0)
+        answers: dict = {}
+        lat_ms: list = []
+        lock = threading.Lock()
+        ops.reset_launch_counts()
+        with serve_in_thread(plane) as h:
+            def client(i):
+                lo = i * per_client
+                with GnnServeClient(h.address) as cli:
+                    for a in range(lo, lo + per_client, SERVE_TCP_RPC):
+                        b = a + SERVE_TCP_RPC
+                        t = time.perf_counter()
+                        got = cli.predict(vids[a:b], thrs[a:b])
+                        dt = (time.perf_counter() - t) * 1e3
+                        with lock:
+                            answers[a] = got
+                            lat_ms.append(dt)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(4)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            wall = time.perf_counter() - t0
+            sync()
+            serve_launches = ops.launch_counts()
+            check(not any(t.is_alive() for t in threads),
+                  "16a: a client did not finish")
+            with GnnServeClient(h.address) as cli:
+                stats = cli.stats()
+            doc, table = obs_dump.dump(
+                [("serve", h.address)]
+                + [(f"embed{i}", s.address) for i, s in enumerate(servers)])
+        samples = list(tr.exchange.rpc_samples)[before_samples:]
+        # offline_predict reads the embed servers too
+        full = np.nonzero(thrs == 1.0)[0]
+        offline = offline_ref(np, plane, vids[full])
+        for s in servers:
+            s.stop()
+        servers = []
+
+        # (b) the launchers, trained meanwhile: the same queries
+        addr = serve.wait_line("gnn_serve listening on", 600).split()[3]
+        ready_s = time.perf_counter() - t_b
+        t0 = time.perf_counter()
+        got_b = []
+        with GnnServeClient(addr) as cli:
+            for a in range(0, n, 256):
+                got_b.append(cli.predict(vids[a:a + 256], thrs[a:a + 256]))
+            stats_b = cli.stats()
+        serve_b_s = time.perf_counter() - t0
+        GnnServeClient(addr).shutdown()
+        for a in addrs:
+            with socket.create_connection(parse_address(a), timeout=10) as s:
+                wire.send_frame(s, wire.build_shutdown())
+                wire.parse_response(wire.recv_frame(s))
+        codes = {c.name: c.finish(120) for c in children}
+    finally:
+        for s in servers:
+            s.stop()
+        for c in children:
+            if c.proc.poll() is None:
+                c.proc.kill()
+                c.proc.wait(10)
+
+    n_rpcs = n // SERVE_TCP_RPC
+    check(sorted(answers) == list(range(0, n, SERVE_TCP_RPC))
+          and all(len(x[0]) == SERVE_TCP_RPC for x in answers.values()),
+          "16a: an RPC went unanswered or short")
+    preds, confs, depths = (np.concatenate([answers[a][i]
+                                            for a in sorted(answers)])
+                            for i in range(3))
+    # the same queries through phase 15's plane (same RunConfig, in process)
+    rids = [ref_plane.submit(int(v), float(t)) for v, t in zip(vids, thrs)]
+    done = {r.rid: r for r in ref_plane.drain()}
+    check(sorted(done) == sorted(rids), "16a: the in-process plane lost "
+                                        "requests")
+    ref_pred = np.array([done[r].pred for r in rids], np.int32)
+    ref_conf = np.array([done[r].conf for r in rids], np.float32)
+    ref_depth = np.array([done[r].depth for r in rids], np.int32)
+    check(np.array_equal(preds, ref_pred) and np.array_equal(depths, ref_depth)
+          and np.array_equal(confs, ref_conf),
+          "16a: answers over TCP differ from the in-process plane's "
+          f"({int((preds != ref_pred).sum())} predictions, max |dconf| "
+          f"{float(np.abs(confs - ref_conf).max())})")
+    check(all(preds[i] == offline[int(vids[i])] for i in full),
+          "16a: threshold-1.0 answers differ from offline_predict")
+    check(stats["served"] == n, f"16a: SSTATS served {stats['served']}, "
+                                f"{n} sent")
+    got_rpcs = stats["metrics"].get("pt_gnnserve.predict_rpcs", 0) \
+        - rpcs_before
+    check(got_rpcs == n_rpcs and all(k.startswith("pt_gnnserve.")
+                                     for k in stats["metrics"]),
+          f"16a: SSTATS counts {got_rpcs} PREDICT RPCs, {n_rpcs} sent")
+    blocks = {b.split(" ", 1)[0]: b for b in table.split("# ")[1:]}
+    scraped = [float(ln.split()[1]) for ln in blocks["serve"].splitlines()
+               if ln.startswith("pt_gnnserve.predict_rpcs ")]
+    check(len(scraped) == 1 and scraped[0] - rpcs_before == n_rpcs,
+          f"16a: the scrape counts {scraped} PREDICT RPCs, {n_rpcs} sent")
+    vg = [r for r in samples if r.op == "vgather"]
+    want = sum(r.layers for r in vg if r.n_rows)
+    if dev == "cuda":
+        got = {k: serve_launches.get(k, 0)
+               for k in ("dequantize_int8", "gather_quantize")}
+        check(got == {"dequantize_int8": want, "gather_quantize": want},
+              f"16a: serving launched {got}; the VGATHER RPCs' non-empty "
+              f"shard layers are {want}")
+        check(serve_launches.get("gnn_aggregate", 0) > 0,
+              "16a: the serving forward never aggregated on the card")
+
+    # (b) the launchers' answers are (a)'s
+    check(all(v == 0 for v in codes.values()), f"16b: exit codes {codes}")
+    for mine, theirs in zip((preds, confs, depths),
+                            (np.concatenate([x[i] for x in got_b])
+                             for i in range(3))):
+        check(np.array_equal(mine, theirs), "16b: the launcher's answers "
+                                            "differ from 16a's")
+    check(stats_b["served"] == n, f"16b: served {stats_b['served']}")
+    last = [ln for ln in serve.lines if ln and ln.startswith("{")]
+    check(bool(last) and json.loads(last[-1])["served"] == n,
+          "16b: gnn_serve printed no stats line on exit")
+
+    lat = np.array(lat_ms)
+    launches = {k: train_launches.get(k, 0) + serve_launches.get(k, 0)
+                for k in set(train_launches) | set(serve_launches)}
+    return {
+        "queries": n, "clients": 4, "rpc_size": SERVE_TCP_RPC,
+        "rpcs": n_rpcs, "steps_per_client": steps,
+        "reference_export_s": ref_s, "train_export_build_s": build_s,
+        "serve_s": wall, "queries_per_s": n / wall,
+        "rpc_latency_ms_p50": float(np.percentile(lat, 50)),
+        "rpc_latency_ms_p99": float(np.percentile(lat, 99)),
+        "vgather_rpcs": len(vg), "vgather_rows": sum(r.n_rows for r in vg),
+        "vgather_measured_s": sum(r.measured_s for r in vg),
+        "exits_by_depth": stats["exits_by_depth"],
+        "cache_hit_rate": stats["cache_hit_rate"],
+        "serve_launches": {k: v for k, v in serve_launches.items() if v},
+    }, launches, {
+        "queries": n, "rpc_size": 256,
+        "ready_s_from_phase_start": ready_s, "serve_s": serve_b_s,
+        "queries_per_s": n / serve_b_s,
+        "trained_line": next((ln for ln in serve.lines
+                              if ln and ln.startswith("trained")), None)}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -2939,6 +3411,24 @@ def main() -> int:
     procs = tcp_process_phase(torch, np)
     procs["phase_s"] = time.perf_counter() - t0
     print("tcp deployment as processes: " + json.dumps(procs), flush=True)
+    t0 = time.perf_counter()
+    with timed(agg_mod, "csr_from_edges", glue), \
+            timed(agg_mod, "transpose_csr", glue):
+        store, store_counts, store_dir, store_tr = store_phase(torch, np)
+    check(not glue, f"the CSR glue ran {len(glue)} times off the store")
+    store["phase_s"] = time.perf_counter() - t0
+    print("graph store: " + json.dumps(store), flush=True)
+    t0 = time.perf_counter()
+    serve_tcp, serve_tcp_counts, serve_procs = serve_tcp_phase(
+        torch, np, store_dir, store_tr)
+    del store_tr
+    serve_tcp["in_process_slice"] = {
+        k: res[k] for k in ("queries_per_s", "request_latency_ms_p50",
+                            "request_latency_ms_p99")}
+    serve_tcp["phase_s"] = time.perf_counter() - t0
+    print("serving over tcp in threads: " + json.dumps(serve_tcp), flush=True)
+    print("serving over tcp as processes: " + json.dumps(serve_procs),
+          flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -2947,15 +3437,20 @@ def main() -> int:
         row["launches_lm"] = lm_counts.get(name, 0)
         row["launches_sharded"] = sharded_counts.get(name, 0)
         row["launches_tcp"] = tcp_counts.get(name, 0)
+        row["launches_store"] = store_counts.get(name, 0)
+        row["launches_serve_tcp"] = serve_tcp_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
-                           + row["launches_sharded"] + row["launches_tcp"])
+                           + row["launches_sharded"] + row["launches_tcp"]
+                           + row["launches_store"]
+                           + row["launches_serve_tcp"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
           f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
           f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)} "
-          f"tcp {json.dumps(tcp_counts)}", flush=True)
+          f"tcp {json.dumps(tcp_counts)} store {json.dumps(store_counts)} "
+          f"serve_tcp {json.dumps(serve_tcp_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

@@ -25,8 +25,12 @@ behind its own modelled link (``shard_nets``), or live TCP embedding
 servers (``transport="tcp"`` with ``transport_addrs``).  With
 ``only_clients`` it is a shard-local trainer for a fedsvc worker: it
 builds samplers, device arrays and registrations for those clients only
-and never evaluates.  Its constructor refuses the graph store and graph
-growth (``ROADMAP.md`` Queue A items 4 and 5).  The coordinator's
+and never evaluates.  Its graph is an in-memory ``Graph`` or an mmap
+:class:`repro_torch.graphstore.GraphStore` (partitioned by streaming LDG
+when no ``part`` is given, its shards streamed), and ``shards=`` takes
+prebuilt shards, e.g. a store's mmap'd shard files, so a worker never
+re-scans the graph.  Its constructor refuses graph growth
+(``ROADMAP.md`` Queue A item 5).  The coordinator's
 fields of a Strategy (``aggregation``, ``weight_codec``,
 ``sample_frac``) are not read here, as in the JAX package: the fedsvc
 coordinator and workers (:mod:`repro_torch.fedsvc`) read them.  It
@@ -53,8 +57,9 @@ from repro_torch.exchange import (ExchangeClient, ShardedTransport,
 from repro_torch.exchange.client import PushPlan
 from repro_torch.fedsvc.aggregation import fedavg_leaves
 from repro_torch.graphs.partition import (ClientShard, bfs_partition,
-                                          make_client_shards)
+                                          filter_shard_remote)
 from repro_torch.graphs.sampler import MiniBatch, NeighborSampler
+from repro_torch.graphstore import build_client_shards, ldg_partition
 from repro_torch.models.gnn import (GNN, blocks_to_arrays, init_gnn, loss_fn,
                                     propagate_arrays, shard_to_arrays)
 from repro_torch.obsv.trace import TRACE
@@ -262,7 +267,7 @@ def eval_arrays_for(g, sel: np.ndarray, device) -> dict:
 
 #: the trainer arguments the port does not take yet, by the
 #: ``ROADMAP.md`` Queue A item that ports them
-_UNPORTED_ITEM = {"shards": 4, "growth": 5}
+_UNPORTED_ITEM = {"growth": 5}
 
 
 def _refuse_unported(given: dict) -> None:
@@ -303,7 +308,7 @@ class FederatedGNNTrainer:
         only_clients: list[int] | None = None,
         growth=None,
     ):
-        _refuse_unported({"shards": shards, "growth": growth})
+        _refuse_unported({"growth": growth})
         if model is not None and (model.conv != conv
                                   or model.num_layers != num_layers
                                   or model.hidden != hidden):
@@ -330,14 +335,22 @@ class FederatedGNNTrainer:
         # = "tcp", or inferred when addresses are given)
         self.transport_addrs = transport_addrs
         # shard-local mode (fedsvc workers): samplers, device arrays and
-        # exchange registrations for the owned clients only
+        # exchange registrations for the owned clients only; with
+        # prebuilt ``shards`` (a store's mmap'd shard files, None for a
+        # client another process owns) the graph is never re-scanned
         self.only_clients = None if only_clients is None \
             else sorted(int(c) for c in only_clients)
+        self._prebuilt_shards = shards
         self.seed = seed
         self.eval_max_edges = eval_max_edges
         self.device = torch.device(device)
-        self.part = bfs_partition(graph, num_clients, seed=seed) \
-            if part is None else part
+        if part is None:
+            # an mmap store is partitioned by single-pass streaming LDG,
+            # not by the BFS grow over O(V) frontiers
+            part = ldg_partition(graph, num_clients, seed=seed) \
+                if getattr(graph, "is_store", False) \
+                else bfs_partition(graph, num_clients, seed=seed)
+        self.part = part
         self.model = model
         self._setup()
 
@@ -350,9 +363,11 @@ class FederatedGNNTrainer:
 
     def _build_shards(self, limit, retained_remote=None
                       ) -> list[ClientShard]:
-        return make_client_shards(self.g, self.part, retention_limit=limit,
-                                  retained_remote=retained_remote,
-                                  seed=self.seed)
+        """Shard extraction by graph plane: streamed over an mmap store,
+        materialised for an in-memory Graph; the same shards either way."""
+        return build_client_shards(self.g, self.part, retention_limit=limit,
+                                   retained_remote=retained_remote,
+                                   seed=self.seed)
 
     def _setup(self) -> None:
         st = self.strategy
@@ -380,10 +395,11 @@ class FederatedGNNTrainer:
                         "rows")
                 self.exchange.track_pulls = True
             self.ex_clients: list[ExchangeClient | None] = [
+                None if self.shards[ci] is None else
                 ExchangeClient(self.exchange, st.codec,
                                delta_threshold=st.delta_threshold,
                                error_feedback=st.error_feedback)
-                for _ in range(self.k)]
+                for ci in range(self.k)]
         else:
             self.exchange = None
             self.ex_clients = [None] * self.k
@@ -403,22 +419,41 @@ class FederatedGNNTrainer:
         and prefetch sets."""
         st = self.strategy
         limit = 0 if not st.use_embeddings else st.retention_limit
-        shards = self._build_shards(limit)
-        # score-based pruning (§4.1.2), scored on the retention-pruned
-        # expanded subgraph; the same seed keeps the same retention edges
-        # before the set filter applies
-        if st.use_embeddings and st.scored_prune_frac is not None:
-            retained = {}
-            for sh in shards:
-                scores = score_remote_nodes(sh, st.score_kind, self.L)
-                keep = top_fraction(scores, st.scored_prune_frac,
-                                    rng=self._client_rng(sh.client_id, 1),
-                                    random_subset=st.random_subset,
-                                    device=self.device)
-                retained[sh.client_id] = sh.pull_nodes[keep]
-            shards = self._build_shards(limit, retained_remote=retained)
+        scored = st.use_embeddings and st.scored_prune_frac is not None
+
+        def keep_of(sh):
+            scores = score_remote_nodes(sh, st.score_kind, self.L)
+            return top_fraction(scores, st.scored_prune_frac,
+                                rng=self._client_rng(sh.client_id, 1),
+                                random_subset=st.random_subset,
+                                device=self.device)
+
+        if self._prebuilt_shards is not None:
+            # prebuilt (mmap'd) shards: the graph is never re-scanned and
+            # score-based pruning filters each owned shard on its own
+            shards = list(self._prebuilt_shards)
+            if scored:
+                for ci in self.owned:
+                    shards[ci] = filter_shard_remote(
+                        shards[ci], shards[ci].pull_nodes[keep_of(shards[ci])])
+        else:
+            # every client's shard is extracted (the reciprocal push sets
+            # need all pull sets), even under only_clients: bake shards
+            # with launch/build_store where that matters.  Score-based
+            # pruning (§4.1.2) is scored on the retention-pruned expanded
+            # subgraph; the same seed keeps the same retention edges
+            # before the set filter applies
+            shards = self._build_shards(limit)
+            if scored:
+                retained = {sh.client_id: sh.pull_nodes[keep_of(sh)]
+                            for sh in shards}
+                shards = self._build_shards(limit, retained_remote=retained)
         self.shards = shards
-        assign_push_sets(shards, self.part)
+        # a shard-local worker over prebuilt shards keeps the push sets
+        # stored at build time (a superset under scored pruning: extra
+        # pushed rows are never read)
+        if all(sh is not None for sh in shards):
+            assign_push_sets(shards, self.part)
         # push rows and prefetch scores (§4.3, on the final expanded
         # shard) for the owned clients only
         self.push_rows: list[np.ndarray | None] = [None] * self.k
@@ -462,8 +497,9 @@ class FederatedGNNTrainer:
                 sh, self.fanout, self.L, self.batch_size, seed=self.seed)
             self.shard_arrays[ci] = shard_to_arrays(sh, dev)
             self.feats[ci] = self.shard_arrays[ci]["features"]
+            # a copy: a prebuilt shard's arrays are read-only file views
             self.labels[ci] = torch.from_numpy(
-                np.asarray(sh.labels, np.int64)).to(dev)
+                np.array(sh.labels, np.int64)).to(dev)
             self._caches[ci] = [
                 torch.zeros((max(1, sh.num_remote), self.hidden),
                             dtype=torch.float32, device=dev)

@@ -14,8 +14,9 @@ The device is per process, not a field: :meth:`RunConfig.build_trainer`
 and :class:`EvalHarness` take it.  A port participant's initial leaves
 come from the port's seeded init, which is not JAX's: a deployment that
 mixes the two packages seeds every participant from one set of leaves.
-Graph stores (``graph="store:<dir>"``, ``ROADMAP.md`` Queue A item 4)
-and graph growth (item 5) are refused, naming their item.
+``graph="store:<dir>"`` opens a prebuilt mmap graph store
+(``python -m repro_torch.launch.build_store``); graph growth
+(``ROADMAP.md`` Queue A item 5) is refused, naming its item.
 """
 
 from __future__ import annotations
@@ -30,8 +31,11 @@ from repro_torch.core.strategies import Strategy, default_strategies
 
 @dataclasses.dataclass
 class RunConfig:
-    #: synthetic preset name ("reddit", scaled by ``scale``/``graph_seed``);
-    #: the JAX package also takes "store:<dir>", which is not ported
+    #: synthetic preset name ("reddit", scaled by ``scale``/``graph_seed``)
+    #: or an out-of-core graph spec "store:<dir>": a prebuilt mmap
+    #: GraphStore every participant opens read-only (its baked partition
+    #: and shard files make a worker load exactly its clients' shards
+    #: instead of regenerating the graph per process)
     graph: str = "reddit"
     scale: float = 0.05
     graph_seed: int = 3
@@ -65,9 +69,8 @@ class RunConfig:
 
     def build_graph(self):
         if self.graph.startswith("store:"):
-            raise NotImplementedError(
-                f"graph={self.graph!r}: graph stores are not ported yet "
-                "(ROADMAP.md Queue A item 4)")
+            from repro_torch.graphstore import open_store
+            return open_store(self.graph[len("store:"):])
         from repro_torch.graphs import make_graph
         return make_graph(self.graph, scale=self.scale,
                           seed=self.graph_seed)
@@ -80,7 +83,9 @@ class RunConfig:
         participant that only needs model init and evaluation (the
         coordinator): no exchange, never a touch of the embed shards.
         ``only_clients`` builds samplers, caches and registrations for
-        just those clients (the fed_worker path)."""
+        just those clients (the fed_worker path); on a ``store:`` graph
+        with prebuilt shard files the worker then mmaps only its own
+        shards and never re-scans the graph."""
         if self.growth:
             raise NotImplementedError(
                 "growth=...: dynamic graphs are not ported yet "
@@ -92,14 +97,27 @@ class RunConfig:
         addrs = self.embed_addrs or None
         if not st.use_embeddings or st.transport != "tcp":
             addrs = None
+        g = self.build_graph()
+        part, shards = None, None
+        if getattr(g, "is_store", False):
+            part = g.load_partition(self.num_clients, self.seed)
+            limit = st.retention_limit if st.use_embeddings else 0
+            if part is not None and \
+                    g.has_shards(self.num_clients, self.seed, limit):
+                owned = range(self.num_clients) if only_clients is None \
+                    else only_clients
+                shards = [None] * self.num_clients
+                for c in owned:
+                    shards[c] = g.load_shard(c, self.num_clients,
+                                             self.seed, limit)
         return FederatedGNNTrainer(
-            self.build_graph(), self.num_clients, st,
+            g, self.num_clients, st,
             conv=self.conv, num_layers=self.num_layers,
             hidden=self.hidden, fanout=self.fanout,
             batch_size=self.batch_size,
             epochs_per_round=self.epochs_per_round, lr=self.lr,
-            transport_addrs=addrs, seed=self.seed,
-            only_clients=only_clients, device=device)
+            transport_addrs=addrs, seed=self.seed, part=part,
+            shards=shards, only_clients=only_clients, device=device)
 
     # -- (de)serialisation -------------------------------------------------
 

@@ -68,8 +68,9 @@ class ShardServeEngine:
                       * serve_fanout)
             for h in range(self.L)
         ]
+        # a copy: a prebuilt shard's arrays are read-only file views
         self.features = torch.from_numpy(
-            np.asarray(shard.features, np.float32)).to(self.device)
+            np.array(shard.features, np.float32)).to(self.device)
         self.hidden = model.hidden if self.L > 1 \
             else int(shard.features.shape[1])
         # remote-slot tables: slot i ↔ shard.pull_nodes[i]; _slot_ver

@@ -1,12 +1,11 @@
-"""Graph partitioning for cross-silo federated subgraph learning (the part
-of ``repro/graphs/partition.py`` the serving and training slices need,
-copied so the same graph and seed give byte-identical partitions and
-shards).
+"""Graph partitioning for cross-silo federated subgraph learning (copy of
+``repro/graphs/partition.py``, so the same graph and seed give
+byte-identical partitions and shards).
 
 The paper uses METIS with vertex balancing and minimised edge cuts.  METIS
 is not installable offline, so we provide a multilevel-lite equivalent:
 BFS-grown balanced partitions followed by greedy Kernighan-Lin-style
-boundary refinement.
+boundary refinement.  A ``hash`` baseline is included for ablations.
 
 ``ClientShard`` is the per-client view the federated runtime consumes:
 the *expanded* subgraph (local ∪ retained remote pull nodes, CSR over
@@ -160,6 +159,16 @@ def bfs_partition(g: Graph, k: int, *, seed: int = 0) -> np.ndarray:
     return part
 
 
+def hash_partition(g: Graph, k: int, *, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, k, size=g.num_vertices).astype(np.int32)
+
+
+def edge_cut(g: Graph, part: np.ndarray) -> int:
+    dst = np.repeat(np.arange(g.num_vertices), np.diff(g.indptr))
+    return int((part[g.indices] != part[dst]).sum())
+
+
 @dataclasses.dataclass
 class ClientShard:
     """Per-client expanded subgraph + federation metadata.
@@ -295,7 +304,10 @@ def make_client_shards(
     GNN, None ⇒ P_inf / EmbC).  ``retained_remote`` optionally maps
     client → global ids of remote vertices to retain (score-based pruning,
     §4.1.2); both compose (limit first, then the vertex set filter).
-    Materializes the full O(E) edge array.
+    Materializes the full O(E) edge array — right for in-memory graphs;
+    an mmap :class:`repro_torch.graphstore.GraphStore` goes through
+    ``repro_torch.graphstore.stream_client_shards`` (the same shards,
+    bounded memory).
     """
     k = int(part.max()) + 1
     deg = np.diff(g.indptr)
@@ -314,3 +326,36 @@ def make_client_shards(
             retention_limit=retention_limit,
             retained_remote=retained_remote, seed=seed))
     return shards
+
+
+def filter_shard_remote(sh: ClientShard,
+                        keep_gids: np.ndarray) -> ClientShard:
+    """Shard-local §4.1.2 filter: drop remote in-edges whose source is
+    not in ``keep_gids`` and compact the pull slots.
+
+    Equivalent to rebuilding the shard with ``retained_remote`` (the
+    edge order, pull ordering and local→global maps all match the
+    full-graph rebuild), but needs only the shard itself: the
+    out-of-core plane uses it so a worker holding one mmap'd shard can
+    apply score-based pruning without re-scanning the graph."""
+    keep_set = np.asarray(keep_gids, dtype=np.int64)
+    e_dst = np.repeat(np.arange(sh.num_local), np.diff(sh.indptr))
+    e_src = sh.indices.astype(np.int64)
+    remote = e_src >= sh.num_local
+    src_gid = sh.global_ids[e_src]
+    keep = ~remote | np.isin(src_gid, keep_set)
+    e_src, e_dst = e_src[keep], e_dst[keep]
+    remote = remote[keep]
+    pull = np.unique(sh.global_ids[e_src[remote]])
+    # remap: locals keep their slots, surviving pulls compact after them
+    g2l = np.full(int(sh.global_ids.max()) + 1, -1, dtype=np.int64)
+    g2l[sh.global_ids[: sh.num_local]] = np.arange(sh.num_local)
+    g2l[pull] = sh.num_local + np.arange(len(pull))
+    e_src = g2l[sh.global_ids[e_src]]
+    indptr = np.zeros(sh.num_local + 1, dtype=np.int64)
+    np.add.at(indptr, e_dst + 1, 1)
+    indptr = np.cumsum(indptr)
+    return dataclasses.replace(
+        sh, indptr=indptr, indices=e_src.astype(np.int32),
+        global_ids=np.concatenate([sh.global_ids[: sh.num_local], pull]),
+        pull_nodes=pull)

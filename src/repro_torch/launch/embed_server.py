@@ -12,7 +12,9 @@ The tables live on the device, so an int8 write is the fused decode +
 scatter (``write_quantized``) of the frame's blocks, each copied to the
 device once, and an int8 gather is the fused gather + encode
 (``gather_quantized``) of the resident table, each layer block copied
-to the host once: the JAX server's ``--device-tables`` path.  The flag
+to the host once: the JAX server's ``--device-tables`` path.  An int8
+versioned gather (``PT_OP_VGATHER``, the serving cache's refresh) takes
+the same fused kernel over its stale rows.  The flag
 is accepted for command-line parity; the port's tables are always on
 ``device``.
 
@@ -38,6 +40,8 @@ from __future__ import annotations
 import argparse
 import socket
 import threading
+
+import numpy as np
 
 from repro_torch.core.embedding_server import EmbeddingServer
 from repro_torch.exchange import wire
@@ -146,11 +150,23 @@ class _ServerState:
 
     def _handle_vgather(self, req: dict) -> bytes:
         codec, gids = req["codec"], req["global_ids"]
-        cdc = get_codec(codec)
         with self.lock:
-            ver, _stale, vals = self.store.gather_if_stale(
-                gids, req["have_versions"], req["layers"])
-            blocks = [wire.encode_block(codec, cdc.encode(r)) for r in vals]
+            st = self.store
+            if codec == "int8":
+                # the stale rows gathered and encoded by one fused kernel
+                # a layer straight off the resident table (no launch when
+                # nothing is stale): the bytes of the encode below
+                ver = st.versions(gids)
+                stale = np.nonzero(
+                    ver != np.asarray(req["have_versions"], np.int64))[0]
+                payloads = st.gather_quantized(np.asarray(gids)[stale],
+                                               req["layers"])
+            else:
+                cdc = get_codec(codec)
+                ver, _stale, vals = st.gather_if_stale(
+                    gids, req["have_versions"], req["layers"])
+                payloads = [cdc.encode(r) for r in vals]
+            blocks = [wire.encode_block(codec, p) for p in payloads]
         return wire.build_ok(ver.tobytes() + b"".join(blocks))
 
 

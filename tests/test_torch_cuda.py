@@ -688,3 +688,69 @@ def test_tcp_on_the_card_equals_a_cpu_server(cuda, codec, shards):
     np.testing.assert_array_equal(va, vb)
     np.testing.assert_array_equal(sa, sb)
     assert pa == pb
+
+
+@pytest.mark.parametrize("sname", ["E", "OPG"])
+def test_store_backed_training_on_the_card_is_bit_equal(cuda, tmp_path,
+                                                        sname):
+    """One round off an mmap graph store with its prebuilt shards on the
+    card, bit-equal to the in-memory trainer over the same partition on
+    the card (OPG filters the prebuilt shards on their own)."""
+    from repro_torch.fedsvc.runtime import RunConfig
+    from repro_torch.graphstore import (ldg_partition, store_from_graph,
+                                        stream_client_shards)
+
+    g = make_graph("reddit", scale=0.1, seed=3)
+    k, seed = 2, 0
+    st = store_from_graph(g, str(tmp_path / "g"))
+    part = ldg_partition(st, k, seed=seed)
+    st.save_partition(part, k, seed)
+    cfg = RunConfig(graph=f"store:{st.path}", num_clients=k, strategy=sname,
+                    overrides={"codec": "int8", "score_kind": "degree"},
+                    epochs_per_round=1, rounds=1, seed=seed)
+    strat = cfg.build_strategy()
+    shards = stream_client_shards(st, part, seed=seed,
+                                  retention_limit=strat.retention_limit)
+    for sh in shards:
+        wanted = [o.pull_nodes[part[o.pull_nodes] == sh.client_id]
+                  for o in shards if o.client_id != sh.client_id]
+        sh.push_nodes = np.unique(np.concatenate(wanted))
+    st.save_shards(shards, k, seed, strat.retention_limit)
+    runs = []
+    for tr in (cfg.build_trainer(),
+               FederatedGNNTrainer(g, k, strat, epochs_per_round=1,
+                                   seed=seed, part=part)):
+        s = tr.train(1)
+        runs.append(([x.accuracy for x in s], [x.train_loss for x in s],
+                     tr.params_leaves()))
+    (aa, al, ap), (ba, bl, bp) = runs
+    assert aa == ba and al == bl
+    assert all(np.array_equal(x, y) for x, y in zip(ap, bp))
+
+
+def test_frontend_round_trip_on_the_card(cuda):
+    """The scoring frontend over a plane on the card: PREDICT over
+    loopback TCP answers each vertex as ``offline_predict``, at full
+    depth for threshold 1.0, and SSTATS counts the served queries."""
+    from repro_torch.gnnserve import GnnServeClient, serve_in_thread
+
+    g = make_graph("arxiv", scale=0.1, seed=7)
+    tr = FederatedGNNTrainer(g, 2, default_strategies()["E"], num_layers=3,
+                             hidden=16, epochs_per_round=1, seed=0)
+    tr.pretrain_round()
+    tr.run_round(0, 0.0)
+    plane = build_serving(tr.export_for_serving(), cache_rows=64,
+                          serve_fanout=4, batch_size=16)
+    vids = np.random.default_rng(3).integers(0, g.num_vertices, 80)
+    with serve_in_thread(plane) as h:
+        with GnnServeClient(h.address) as cli:
+            preds, confs, depths = cli.predict(vids)
+            stats = cli.stats()
+    want = []
+    for v in vids:
+        eng = plane.engines[int(plane.part[v])]
+        want.append(int(eng.offline_predict(
+            np.array([eng.local_id(int(v))], np.int64))[0]))
+    np.testing.assert_array_equal(preds, np.array(want, np.int32))
+    np.testing.assert_array_equal(depths, np.full(len(vids), 3))
+    assert np.all(np.isfinite(confs)) and stats["served"] == len(vids)

@@ -592,7 +592,7 @@ def test_async_deployment_with_scenarios():
     assert all(r["measured_s"] >= 0.2 for r in workers[0].records)
 
 
-def test_runconfig_and_refusals():
+def test_runconfig_and_refusals(tmp_path):
     cfg = RunConfig(strategy="OPP", rounds=5,
                     overrides={"codec": "int8", "delta_threshold": 0.05,
                                "aggregation": "async"},
@@ -604,8 +604,18 @@ def test_runconfig_and_refusals():
     st = back.build_strategy()
     assert st.codec == "int8" and st.aggregation == "async"
     assert st.transport == "tcp" and st.prefetch_frac == 0.25
-    with pytest.raises(NotImplementedError, match="item 4"):
-        RunConfig(graph="store:/nowhere").build_graph()
+    # graph stores (item 4) open; only growth (item 5) stays refused
+    from repro_torch.graphs import make_graph
+    from repro_torch.graphstore import store_from_graph
+    g = make_graph("arxiv", scale=0.1, seed=7)
+    path = store_from_graph(g, str(tmp_path / "g")).path
+    st = RunConfig(graph=f"store:{path}").build_graph()
+    assert st.is_store and st.num_edges == g.num_edges
+    np.testing.assert_array_equal(st.indices, g.indices)
+    assert JRunConfig(graph=f"store:{path}").build_graph().num_vertices == \
+        g.num_vertices
+    with pytest.raises(FileNotFoundError):
+        RunConfig(graph=f"store:{tmp_path / 'nowhere'}").build_graph()
     with pytest.raises(NotImplementedError, match="item 5"):
         RunConfig(growth={"scale": 1}).build_trainer(device="cpu")
     tr = RunConfig(**CFG_KW).build_trainer(only_clients=[1], device="cpu")

@@ -214,6 +214,9 @@ def traced_pair():
                           ("port", tt, ttrace.TRACE)):
         was, ctx = rec.enabled, dict(rec.context)
         rec.clear()
+        # tags an earlier test in this process left (a fedsvc worker's
+        # "worker") would tag these spans too
+        rec.context.clear()
         rec.enable()
         try:
             tr.train(2)

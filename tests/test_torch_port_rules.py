@@ -13,7 +13,7 @@ from repro_torch.exchange import socket_transport, transport
 from repro_torch.fedsvc import coordinator, runtime, worker
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
-from repro_torch.launch import embed_server
+from repro_torch.launch import embed_server, gnn_serve
 from repro_torch.models import gnn, layers, lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -63,9 +63,37 @@ def test_scan_catches_a_jax_import(tmp_path):
     embed_server.serve, runtime.RunConfig.build_trainer,
     runtime.EvalHarness.__init__, runtime.make_coordinator_state,
     worker.FedWorker.__init__, coordinator.CoordinatorState.__init__,
+    gnn_serve.build_plane_from_cfg,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_store_and_serving_launchers_default_to_the_card(tmp_path):
+    """``RunConfig.build_trainer`` over a store, the serving launcher's
+    ``--device`` and the plane it builds: the card unless asked; the
+    store builder needs no device at all (it imports no torch)."""
+    import argparse
+
+    from repro_torch.graphs import make_graph
+    from repro_torch.graphstore import store_from_graph
+
+    path = store_from_graph(make_graph("arxiv", scale=0.1, seed=7),
+                            str(tmp_path / "g")).path
+    cfg = runtime.RunConfig(graph=f"store:{path}")
+    assert cfg.build_graph().is_store
+    assert inspect.signature(cfg.build_trainer).parameters[
+        "device"].default == "cuda"
+    ap = argparse.ArgumentParser()
+    runtime.RunConfig.add_args(ap)
+    assert ap.parse_args([]).device == "cuda"
+    src = (PORT / "launch" / "build_store.py").read_text(encoding="utf-8")
+    assert "--device" not in src
+    assert "torch" not in {m for m, _ in _imported_roots(
+        PORT / "launch" / "build_store.py")}
+    for sub in ("graphs", "graphstore"):
+        for p in (PORT / sub).glob("*.py"):
+            assert "torch" not in {m for m, _ in _imported_roots(p)}, p
 
 
 def test_kernels_build_without_fast_math():

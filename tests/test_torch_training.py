@@ -24,6 +24,7 @@ accept and do not read.  Then the port's trained state is published and
 served.
 """
 
+import copy
 import dataclasses
 import functools
 
@@ -216,16 +217,33 @@ def test_coordinator_fields_leave_the_rounds_unchanged(over):
         assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(growth=object()), 5), (dict(shards=[None, None]), 4)])
+@pytest.mark.parametrize("kw,item", [(dict(growth=object()), 5)])
 def test_unported_configurations_are_refused(kw, item):
-    """Only the graph store (item 4) and graph growth (item 5) are still
-    refused; the TCP wire and shard-local trainers run
-    (``tests/test_torch_wire.py``, ``tests/test_torch_fedsvc.py``)."""
+    """Only graph growth (item 5) is still refused; the TCP wire,
+    shard-local trainers and graph stores with prebuilt shards run
+    (``tests/test_torch_wire.py``, ``tests/test_torch_fedsvc.py``,
+    ``tests/test_torch_graphstore.py``)."""
     with pytest.raises(NotImplementedError,
                        match=rf"not ported.*ROADMAP\.md.*item {item}\)"):
         TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2,
                  tstrategies()["E"], device="cpu", **kw)
+
+
+def test_prebuilt_shards_are_accepted():
+    """``shards=`` (ROADMAP.md Queue A item 4) runs: a trainer given the
+    shards another trainer built takes them as they are and trains the
+    same round, bit for bit."""
+    g = tmake_graph("arxiv", scale=0.1, seed=7)
+    kw = dict(num_layers=2, hidden=8, epochs_per_round=1, seed=0,
+              device="cpu")
+    a = TTrainer(g, 2, tstrategies()["E"], **kw)
+    b = TTrainer(g, 2, tstrategies()["E"], part=a.part,
+                 shards=[copy.copy(sh) for sh in a.shards], **kw)
+    assert all(x.indices is y.indices for x, y in zip(a.shards, b.shards))
+    sa, sb = a.train(1), b.train(1)
+    assert [s.accuracy for s in sa] == [s.accuracy for s in sb]
+    assert all(np.array_equal(x, y) for x, y in
+               zip(a.params_leaves(), b.params_leaves()))
 
 
 @pytest.mark.parametrize("placement,match", [
