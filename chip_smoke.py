@@ -212,6 +212,29 @@ Phases, each of which fails the run:
    launchers and ``gnn_serve --graph store:...`` with their addresses
    (run by ``CUT_GNN_SERVE``, which cuts its epochs the same way); the
    same queries must get (a)'s answers, and every process must exit 0.
+17. Graph growth (after step 16).  (a) In process: ``GrowthSchedule``
+   (RMAT scale 16, edge factor 8, seed 0, half the vertices in the base,
+   4 events before rounds 1-4, 41 classes, 96 features) builds its base
+   store, and ``RunConfig(growth=...)`` (phase 15's strategy and model,
+   LDG admission with one restreaming pass an event, each client's
+   epoch cut to 16 minibatches) trains one round on the base and one
+   after each event on the card, counters zeroed before the trainer is
+   built.  Fails unless after each event the graph and partition have
+   the frontier's size, the server holds exactly the union of the
+   boundary sets registered so far and ``pt_dyngraph.boundary_
+   registrations`` moved by the new rows counted here; every training
+   kernel launched, rows 3 and 4 in the last round over the grown table;
+   ``EmbeddingServer.push`` then ``pull`` of the last event's fresh rows
+   equals ``gather``; and the final overlay compacts byte-equal to
+   ``build_full``.  It prints, per event, the apply, restream and
+   refresh seconds (shards, register, client state, eval), the fresh
+   registrations, the table's reallocations and the edge cut after
+   admission and after the restreaming pass; steps/s before and after
+   growth; compaction seconds beside ``build_full``'s.  (b) In threads:
+   the same schedule at scale 12, two port embed servers, a port
+   coordinator with the growth barrier and two port workers of two
+   clients each; the accuracy history and leaves equal the in-process
+   grown trainer's over 2 shards, bit for bit.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -3322,6 +3345,309 @@ def serve_tcp_phase(torch, np, store: str, ref_trainer, dev: str = DEV,
                               if ln and ln.startswith("trained")), None)}
 
 
+# -- phase 17: graph growth ---------------------------------------------------
+
+#: phase 17's growth schedule: 65,536 vertices at the end (half of them in
+#: the base), four events before rounds 1-4, reddit's feature and class
+#: widths
+GROWTH_SCHEDULE = dict(scale=16, edge_factor=8, seed=0, base_frac=0.5,
+                       num_events=4, start_round=1, every_rounds=1,
+                       num_classes=41, feat_dim=96)
+
+
+def growth_config(path, schedule, rounds: int, **over):
+    """Phase 17's RunConfig over the base store at ``path``: 4 clients,
+    OPG + int8 + degree scores (phase 15's strategy), GraphConv L=3
+    hidden 32, one epoch a round, LDG admission with one restreaming pass
+    an event, growing by ``schedule``."""
+    from repro_torch.fedsvc.runtime import RunConfig
+
+    return RunConfig(graph=f"store:{path}", num_clients=4, strategy="OPG",
+                     overrides={"codec": "int8", "score_kind": "degree",
+                                "restream_passes": 1, **over},
+                     epochs_per_round=1, rounds=rounds, seed=0,
+                     growth=schedule.to_dict())
+
+
+def boundary_union(np, tr):
+    """The union of the owned shards' pull and push sets."""
+    return np.unique(np.concatenate(
+        [np.zeros(0, np.int64)]
+        + [a for ci in tr.owned
+           for a in (tr.shards[ci].pull_nodes, tr.shards[ci].push_nodes)]))
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def growth_phase(torch, np, dev: str = DEV, sched_kw: dict = GROWTH_SCHEDULE,
+                 steps: int = STORE_STEPS) -> tuple[dict, dict]:
+    """17a: the schedule's base store, then one round on it and one round
+    after each of its events (``RunConfig(growth=...)``, each client's
+    epoch cut to ``steps`` minibatches), on the card.  After each event:
+    the graph and partition have the frontier's size, the server holds
+    exactly the union of every boundary set registered so far, and
+    ``pt_dyngraph.boundary_registrations`` moved by the new rows counted
+    here; the rounds after the last event launch rows 3 and 4 over the
+    grown table; ``EmbeddingServer.push`` then ``pull`` of the last
+    event's fresh rows returns what ``gather`` returns; and the final
+    overlay compacts byte-equal to ``build_full``.  Returns the
+    measurements and the launches of the training window."""
+    import shutil
+
+    from repro_torch.dyngraph import (GraphOverlay, GrowthSchedule, admit,
+                                      compact, edge_cut_stream)
+    from repro_torch.dyngraph import runtime as rt_mod
+    from repro_torch.kernels import ops
+    from repro_torch.obsv.metrics import REGISTRY
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    counter = "pt_dyngraph.boundary_registrations"
+
+    def registrations():
+        return REGISTRY.snapshot("pt_dyngraph.").get(counter, 0)
+
+    sched = GrowthSchedule(**sched_kw)
+    rounds = sched.num_events + 1
+    root = pathlib.Path(__file__).resolve().parent / "build" / \
+        f"growth_{sched.scale}"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    base = sched.build_base(str(root / "base"))
+    base_s = time.perf_counter() - t0
+    cfg = growth_config(root / "base", sched, rounds)
+
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    tr = cfg.build_trainer(device=dev)
+    sync()
+    setup_s = time.perf_counter() - t0
+    server = tr.exchange.server
+    seen = boundary_union(np, tr)
+    check(tr.g.num_vertices == sched.base_vertices and np.array_equal(
+        np.nonzero(server._gid2row >= 0)[0], seen),
+        "17a: the base trainer's registered rows are not its boundary sets")
+    base_rows = len(seen)
+    step_s: list = []
+    step_args: list = []
+    events, per_round = [], []
+    cum = 0.0
+    with cut_epochs(steps), timed(tr, "train_minibatches", step_s,
+                                  step_args, sync=sync):
+        tr.pretrain_round()
+        for r in range(rounds):
+            part_before = tr.part
+            logs = {k: [] for k in ("apply", "restream", "cut", "shards",
+                                    "register", "client_state", "eval")}
+            before = registrations()
+            reallocs = server._reallocs
+            t0 = time.perf_counter()
+            with timed(GraphOverlay, "apply", logs["apply"]), \
+                    timed(rt_mod, "repartition", logs["restream"]), \
+                    timed(rt_mod, "edge_cut_stream", logs["cut"]), \
+                    timed(tr, "_build_shard_state", logs["shards"]), \
+                    timed(tr, "_register_shard_nodes", logs["register"]), \
+                    timed(tr, "_build_client_state", logs["client_state"],
+                          sync=sync), \
+                    timed(tr, "_build_eval_state", logs["eval"], sync=sync):
+                jumped = tr.apply_growth(tr.growth.epoch_for_round(r), r)
+            sync()
+            grow_s = time.perf_counter() - t0
+            check(jumped == (r >= sched.start_round),
+                  f"17a: round {r} jumped {jumped}")
+            if jumped:
+                e = tr.growth.applied_epoch
+                v = sched.frontier(e)
+                check(tr.g.num_vertices == v and len(tr.part) == v,
+                      f"17a: event {e}: {tr.g.num_vertices} vertices, "
+                      f"partition of {len(tr.part)}, frontier {v}")
+                now = boundary_union(np, tr)
+                fresh = np.setdiff1d(now, seen)
+                seen = np.union1d(seen, now)
+                check(registrations() - before == len(fresh),
+                      f"17a: event {e}: {counter} moved by "
+                      f"{registrations() - before}, {len(fresh)} new rows")
+                check(np.array_equal(np.nonzero(server._gid2row >= 0)[0],
+                                     seen), f"17a: event {e}: the server's "
+                      "rows are not the boundary sets registered so far")
+                cfg_r = tr.growth.restream_cfg
+                events.append({
+                    "epoch": e, "vertices": v, "edges": tr.g.num_edges,
+                    "apply_s": sum(logs["apply"]),
+                    "restream_s": sum(logs["restream"]),
+                    "edge_cut_s": sum(logs["cut"]),
+                    "refresh_s": {k: sum(logs[k]) for k in
+                                  ("shards", "register", "client_state",
+                                   "eval")},
+                    "grow_s": grow_s,
+                    "fresh_registrations": len(fresh),
+                    "reallocations": server._reallocs - reallocs,
+                    "capacity_rows": server._cap,
+                    "edge_cut_admit": edge_cut_stream(
+                        tr.g, admit(tr.g, part_before, 4, cfg_r)),
+                    "edge_cut_restream": edge_cut_stream(tr.g, tr.part),
+                })
+                print(f"17a event: {json.dumps(events[-1])}", flush=True)
+                last_fresh = fresh
+            n0 = len(step_s)
+            counts0 = ops.launch_counts()
+            t0 = time.perf_counter()
+            s = tr.run_round(r, cum)
+            sync()
+            cum = s.cum_time
+            n_steps = sum(len(a[3]) for a in step_args[n0:])
+            moved = {k: v - counts0.get(k, 0)
+                     for k, v in ops.launch_counts().items()}
+            per_round.append({
+                "round": r, "epoch": tr.growth.applied_epoch,
+                "round_s": time.perf_counter() - t0, "steps": n_steps,
+                "steps_per_s": n_steps / max(sum(step_s[n0:]), 1e-12),
+                "accuracy": s.accuracy, "loss": s.train_loss,
+                "pull_push_launches": {k: moved.get(k, 0) for k in
+                                       ("gather_quantize",
+                                        "dequant_scatter")}})
+            check(np.isfinite(s.train_loss) and 0.0 <= s.accuracy <= 1.0,
+                  f"17a: round {r}: accuracy {s.accuracy}, loss "
+                  f"{s.train_loss}")
+    launches = ops.launch_counts()
+    check(tr.growth.applied_epoch == sched.num_events
+          and tr.g.num_vertices == sched.num_vertices
+          and len(tr.eval_gids) == sched.num_vertices,
+          "17a: the run did not grow to the full graph")
+    check(server._next_row == len(seen) > base_rows,
+          f"17a: the table holds {server._next_row} rows, the boundary "
+          f"sets {len(seen)} (base {base_rows})")
+    if dev == "cuda":
+        for name in TRAIN_KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"17a: kernel {name} never launched in the grown run")
+        last = per_round[-1]["pull_push_launches"]
+        check(all(n > 0 for n in last.values()),
+              f"17a: rows 3 and 4 over the grown table: {last}")
+
+    # EmbeddingServer.push then pull of the last event's fresh rows
+    vals = [v + 1.0 for v in server.gather(last_fresh)]
+    t_push = server.push(last_fresh, vals)
+    got, t_pull = server.pull(last_fresh)
+    again = server.gather(last_fresh)
+    check(t_push > 0 and t_pull > 0 and server.log.rpcs == 2
+          and all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, again, vals)),
+          "17a: push then pull of the fresh rows is not what gather reads")
+
+    # the final overlay compacts to the from-scratch build
+    t0 = time.perf_counter()
+    compact(tr.g, str(root / "compacted"), name="dyn_full")
+    compact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched.build_full(str(root / "full"))
+    full_s = time.perf_counter() - t0
+    for f in ("indptr", "indices", "features", "labels", "train_mask"):
+        check((root / "compacted" / f"{f}.npy").read_bytes()
+              == (root / "full" / f"{f}.npy").read_bytes(),
+              f"17a: the compacted {f} differs from build_full's")
+    out = {
+        "schedule": sched.to_dict(), "base_vertices": base.num_vertices,
+        "base_edges": base.num_edges, "base_build_s": base_s,
+        "setup_s": setup_s, "steps_per_client": steps, "rounds": rounds,
+        "events": events, "per_round": per_round,
+        "base_rows": base_rows, "final_rows": int(server._next_row),
+        "reallocations": server._reallocs,
+        "steps_per_s_base": per_round[0]["steps_per_s"],
+        "steps_per_s_grown": per_round[-1]["steps_per_s"],
+        "compact_s": compact_s, "build_full_s": full_s,
+        "final_vertices": tr.g.num_vertices, "final_edges": tr.g.num_edges,
+        "fresh_push_pull_s": [t_push, t_pull],
+    }
+    del tr
+    shutil.rmtree(root, ignore_errors=True)
+    return out, launches
+
+
+def growth_fedsvc_phase(torch, np, dev: str = DEV, scale: int = 12,
+                        steps: int = STORE_STEPS) -> tuple[dict, dict]:
+    """17b: phase 17's schedule at ``scale``, two port embed servers, a
+    port coordinator with the growth barrier and two port workers of two
+    clients each, in threads over loopback TCP: the accuracy history and
+    leaves equal the port's in-process grown trainer's over 2 shards
+    from the same RunConfig, bit for bit.  Returns the measurements and
+    the deployment window's launches."""
+    import shutil
+
+    from repro_torch.dyngraph import GrowthSchedule
+    from repro_torch.fedsvc.coordinator import serve_in_thread
+    from repro_torch.fedsvc.runtime import make_coordinator_state
+    from repro_torch.fedsvc.worker import FedWorker, run_in_thread
+    from repro_torch.kernels import ops
+    from repro_torch.launch import embed_server
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    sched = GrowthSchedule(**dict(GROWTH_SCHEDULE, scale=scale))
+    rounds = sched.num_events + 1
+    root = pathlib.Path(__file__).resolve().parent / "build" / \
+        f"growth_fed_{scale}"
+    shutil.rmtree(root, ignore_errors=True)
+    sched.build_base(str(root / "base"))
+    t0 = time.perf_counter()
+    with cut_epochs(steps):
+        ref = growth_config(root / "base", sched, rounds,
+                            num_server_shards=2).build_trainer(device=dev)
+        ref_stats = ref.train(rounds)
+    sync()
+    ref_s = time.perf_counter() - t0
+    servers = [embed_server.serve_in_thread(3, 32, device=dev)
+               for _ in range(2)]
+    cfg = growth_config(root / "base", sched, rounds)
+    cfg.embed_addrs = [f"{h.host}:{h.port}" for h in servers]
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = make_coordinator_state(cfg, device=dev)
+        with cut_epochs(steps), serve_in_thread(state) as coord:
+            workers = [FedWorker(cfg, [2 * i, 2 * i + 1], coord.address,
+                                 worker_id=f"w{i}", device=dev)
+                       for i in range(2)]
+            threads = [run_in_thread(w) for w in workers]
+            check(coord.join(timeout=600), "17b: the coordinator never "
+                                           "finished")
+            for t in threads:
+                t.join(60)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        for h in servers:
+            h.stop()
+    check(all(not t.is_alive() for t in threads)
+          and all(not w.dropped and not w.disconnected for w in workers),
+          "17b: a worker did not finish")
+    accs = [h["accuracy"] for h in state.history]
+    check(accs == [s.accuracy for s in ref_stats],
+          f"17b: accuracies {accs} != in-process "
+          f"{[s.accuracy for s in ref_stats]}")
+    leaf_err = max(float(np.abs(a - np.asarray(b)).max())
+                   for a, b in zip(ref.params_leaves(), state.leaves))
+    check(leaf_err == 0.0, f"17b: leaves differ from the in-process grown "
+                           f"trainer's by {leaf_err}")
+    for w in workers:
+        check(w.trainer.growth.applied_epoch == sched.num_events
+              and w.trainer.g.num_vertices == sched.num_vertices,
+              f"17b: worker {w.worker_id} did not grow to the full graph")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"scale": scale, "vertices": sched.num_vertices,
+            "rounds": rounds, "reference_s": ref_s, "run_s": run_s,
+            "accuracy": accs, "max_leaf_err": leaf_err,
+            "round_wall_s": [h["wall_s"] for h in state.history]}, launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -3429,6 +3755,19 @@ def main() -> int:
     print("serving over tcp in threads: " + json.dumps(serve_tcp), flush=True)
     print("serving over tcp as processes: " + json.dumps(serve_procs),
           flush=True)
+    t0 = time.perf_counter()
+    with timed(agg_mod, "csr_from_edges", glue), \
+            timed(agg_mod, "transpose_csr", glue):
+        growth, growth_counts = growth_phase(torch, np)
+        growth["phase_a_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        growth_fed, fed_counts = growth_fedsvc_phase(torch, np)
+    check(not glue, f"the CSR glue ran {len(glue)} times on the growth path")
+    growth_fed["phase_s"] = time.perf_counter() - t1
+    growth_counts = add_counts(growth_counts, fed_counts)
+    print("graph growth: " + json.dumps(growth), flush=True)
+    print("graph growth under fedsvc in threads: " + json.dumps(growth_fed),
+          flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -3439,18 +3778,21 @@ def main() -> int:
         row["launches_tcp"] = tcp_counts.get(name, 0)
         row["launches_store"] = store_counts.get(name, 0)
         row["launches_serve_tcp"] = serve_tcp_counts.get(name, 0)
+        row["launches_growth"] = growth_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
                            + row["launches_sharded"] + row["launches_tcp"]
                            + row["launches_store"]
-                           + row["launches_serve_tcp"])
+                           + row["launches_serve_tcp"]
+                           + row["launches_growth"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
           f"{json.dumps(train_counts)} pull {json.dumps(pull_counts)} lm "
           f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)} "
           f"tcp {json.dumps(tcp_counts)} store {json.dumps(store_counts)} "
-          f"serve_tcp {json.dumps(serve_tcp_counts)}", flush=True)
+          f"serve_tcp {json.dumps(serve_tcp_counts)} growth "
+          f"{json.dumps(growth_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

@@ -20,6 +20,10 @@ bit-identical to gather→encode and decode→write.
 Row versions: every write bumps the rows' counters, so a serving cache
 revalidates a held row for 8 bytes (:meth:`versions`,
 :meth:`gather_if_stale`) instead of re-pulling it.
+
+:meth:`push` / :meth:`pull` are the JAX server's RPC surface: a write or
+gather that also prices the call on the server's :class:`NetworkModel`
+and adds it to :attr:`log`.
 """
 
 from __future__ import annotations
@@ -29,16 +33,20 @@ import torch
 
 from repro_torch.kernels import ops
 
+from .cost_model import NetworkModel, TransferLog
+
 _MIN_CAPACITY = 256
 
 
 class EmbeddingServer:
-    def __init__(self, num_layers: int, hidden: int, *,
+    def __init__(self, num_layers: int, hidden: int,
+                 net: NetworkModel | None = None, *,
                  device: str = "cuda"):
         if num_layers < 2:
             raise ValueError("embedding sharing needs L >= 2")
         self.L = num_layers
         self.hidden = hidden
+        self.net = net or NetworkModel()
         self.device = torch.device(device)
         #: dense gid → row map (-1 = unregistered)
         self._gid2row = np.full(0, -1, np.int64)
@@ -49,6 +57,7 @@ class EmbeddingServer:
                       for _ in range(num_layers - 1)]
         self._ver = np.zeros(0, np.int64)      # per-row write counter
         self._reallocs = 0                     # growth events (O(log n))
+        self.log = TransferLog()               # push / pull RPCs
 
     # -- registration ------------------------------------------------------
 
@@ -249,3 +258,39 @@ class EmbeddingServer:
         idx = self._index(rows[stale])
         vals = [self._bufs[l - 1][idx] for l in sel]
         return ver, stale.astype(np.int64), vals
+
+    # -- RPC surface ---------------------------------------------------------
+
+    def push(self, global_ids: np.ndarray, layer_values: list) -> float:
+        """Batched pipelined SET of h^1..h^{L-1} for ``global_ids``
+        (``layer_values[l]`` is an (n, hidden) block for layer l+1).
+        Returns the modelled wall time, which is also logged."""
+        if len(layer_values) != self.L - 1:
+            raise ValueError(f"{len(layer_values)} layer blocks for "
+                             f"{self.L - 1} tables")
+        if len(global_ids) == 0:
+            return 0.0
+        self.write(global_ids, layer_values)
+        n = len(global_ids)
+        t = self.net.transfer_time(n, self.hidden, self.L - 1)
+        self.log.add(bytes=self.net.embedding_bytes(n, self.hidden,
+                                                    self.L - 1),
+                     rpcs=1, embeddings=n * (self.L - 1), seconds=t)
+        return t
+
+    def pull(self, global_ids: np.ndarray, *,
+             layers: list[int] | None = None
+             ) -> tuple[list[torch.Tensor], float]:
+        """Batched pipelined GET: ([per-layer (n, hidden) tensor],
+        modelled time).  ``layers`` selects the h^l tables (1-indexed);
+        ``None`` fetches all L-1, an explicit ``[]`` none."""
+        sel = self._sel(layers)
+        out = self.gather(global_ids, sel)
+        if len(global_ids) == 0 or len(sel) == 0:
+            return out, 0.0
+        n = len(global_ids)
+        t = self.net.transfer_time(n, self.hidden, len(sel))
+        self.log.add(bytes=self.net.embedding_bytes(n, self.hidden,
+                                                    len(sel)),
+                     rpcs=1, embeddings=n * len(sel), seconds=t)
+        return out, t

@@ -29,8 +29,11 @@ and never evaluates.  Its graph is an in-memory ``Graph`` or an mmap
 :class:`repro_torch.graphstore.GraphStore` (partitioned by streaming LDG
 when no ``part`` is given, its shards streamed), and ``shards=`` takes
 prebuilt shards, e.g. a store's mmap'd shard files, so a worker never
-re-scans the graph.  Its constructor refuses graph growth
-(``ROADMAP.md`` Queue A item 5).  The coordinator's
+re-scans the graph.  With ``growth=`` (a
+:class:`repro_torch.dyngraph.GrowthRuntime`) the graph grows between
+rounds: :meth:`FederatedGNNTrainer.apply_growth` swaps in the merged
+overlay and rebuilds every shard-derived structure, keeping the model,
+the exchange and its clients.  The coordinator's
 fields of a Strategy (``aggregation``, ``weight_codec``,
 ``sample_frac``) are not read here, as in the JAX package: the fedsvc
 coordinator and workers (:mod:`repro_torch.fedsvc`) read them.  It
@@ -265,22 +268,6 @@ def eval_arrays_for(g, sel: np.ndarray, device) -> dict:
                             g.features[sel], device)
 
 
-#: the trainer arguments the port does not take yet, by the
-#: ``ROADMAP.md`` Queue A item that ports them
-_UNPORTED_ITEM = {"growth": 5}
-
-
-def _refuse_unported(given: dict) -> None:
-    """Raise for each configuration the port's trainer does not run,
-    naming the ``ROADMAP.md`` Queue A item that ports it."""
-    bad = [f"{name}=... (item {_UNPORTED_ITEM[name]})"
-           for name, v in given.items() if v is not None]
-    if bad:
-        raise NotImplementedError(
-            "not ported to the PyTorch trainer yet (ROADMAP.md Queue A): "
-            + ", ".join(bad))
-
-
 class FederatedGNNTrainer:
     def __init__(
         self,
@@ -308,7 +295,6 @@ class FederatedGNNTrainer:
         only_clients: list[int] | None = None,
         growth=None,
     ):
-        _refuse_unported({"growth": growth})
         if model is not None and (model.conv != conv
                                   or model.num_layers != num_layers
                                   or model.hidden != hidden):
@@ -344,6 +330,12 @@ class FederatedGNNTrainer:
         self.seed = seed
         self.eval_max_edges = eval_max_edges
         self.device = torch.device(device)
+        # dynamic graphs (a repro_torch.dyngraph.GrowthRuntime):
+        # apply_growth() advances it between rounds and rebuilds every
+        # shard-derived structure when the graph jumps
+        self.growth = growth
+        self._growth_round = 0        # round of the last graph jump
+        self._growth_accs_base = 0    # pre-jump accuracies to ignore (τ)
         if part is None:
             # an mmap store is partitioned by single-pass streaming LDG,
             # not by the BFS grow over O(V) frontiers
@@ -373,6 +365,7 @@ class FederatedGNNTrainer:
         st = self.strategy
         self.owned = list(range(self.k)) if self.only_clients is None \
             else self.only_clients
+        self._registered = np.zeros(0, np.int64)  # gids the exchange knows
         self._build_shard_state()
         if st.shard_placement not in ("hash", "pull_frequency"):
             raise ValueError(
@@ -472,13 +465,23 @@ class FederatedGNNTrainer:
             self.prefetch_sets[ci] = idx
 
     def _register_shard_nodes(self) -> None:
-        """Register every shard's pull and push sets with the exchange."""
+        """Register the owned shards' pull and push sets with the
+        exchange.  Registration is idempotent (the server's table keeps
+        existing rows), so after a growth jump only the new boundary
+        vertices matter: they are counted into the growth runtime's
+        boundary-registration counter."""
         if self.exchange is None:
             return
+        fresh = 0
         for ci in self.owned:
             sh = self.shards[ci]
             for gids in (sh.pull_nodes, sh.push_nodes):
+                if self.growth is not None and len(gids):
+                    fresh += len(np.setdiff1d(gids, self._registered))
+                    self._registered = np.union1d(self._registered, gids)
                 self.exchange.register(gids)
+        if self.growth is not None and fresh:
+            self.growth.record_boundary(fresh)
 
     def _build_client_state(self) -> None:
         """Per-client training state of the owned clients: samplers,
@@ -522,6 +525,36 @@ class FederatedGNNTrainer:
         self.eval_arrays = eval_arrays_for(self.g, sel, self.device)
         self.test_idx = np.nonzero(~np.asarray(self.g.train_mask[sel]))[0]
 
+    # -- dynamic graphs (repro_torch.dyngraph) ----------------------------------
+
+    def apply_growth(self, epoch: int,
+                     round_idx: int | None = None) -> bool:
+        """Advance the growth runtime to ``epoch`` and, if the graph
+        jumped, swap in the merged view and rebuild every shard-derived
+        structure (shards, push sets, samplers, device arrays, caches,
+        eval sample).  The model and the exchange survive: only the new
+        boundary vertices are registered (the server's capacity-doubling
+        path).  ``round_idx`` stamps the jump so the plateau-τ schedule
+        restarts from it.  → True when anything changed."""
+        if self.growth is None:
+            return False
+        if not self.growth.advance_to(epoch, part=self.part):
+            return False
+        self.g = self.growth.graph
+        self.part = self.growth.part
+        if round_idx is not None:
+            self._growth_round = int(round_idx)
+            self._growth_accs_base = int(round_idx)
+        self._refresh_after_growth()
+        return True
+
+    def _refresh_after_growth(self) -> None:
+        self._prebuilt_shards = None    # extracted before the jump: stale
+        self._build_shard_state()
+        self._register_shard_nodes()
+        self._build_client_state()
+        self._build_eval_state()
+
     # -- params <-> leaves ------------------------------------------------------
 
     def params_leaves(self, params: GNN | None = None) -> list[np.ndarray]:
@@ -543,10 +576,14 @@ class FederatedGNNTrainer:
 
     def set_round_tau(self, round_idx: int, accuracies=None) -> None:
         """Apply the adaptive-τ schedule (Strategy.delta_schedule) for
-        this round to every client's delta tracker."""
+        this round to every client's delta tracker.  After a growth jump
+        the schedule restarts from the jump round: the linear warm-up
+        ramps again, and the plateau detector sees only the accuracies
+        since the jump."""
         tau = self.strategy.delta_for_round(
-            round_idx,
-            list(self.acc_history if accuracies is None else accuracies))
+            round_idx - self._growth_round,
+            list(self.acc_history if accuracies is None
+                 else accuracies)[self._growth_accs_base:])
         if tau is None:
             return
         for ex in self.ex_clients:
@@ -798,6 +835,8 @@ class FederatedGNNTrainer:
         stats: list[RoundStats] = []
         cum = 0.0
         for r in range(num_rounds):
+            if self.growth is not None:
+                self.apply_growth(self.growth.epoch_for_round(r), r)
             s = self.run_round(r, cum)
             cum = s.cum_time
             stats.append(s)

@@ -16,7 +16,9 @@ Scores:
   - ``bridge``: degree-based bridging coefficient × ego betweenness proxy.
 
 Uniform retention-limit pruning (§4.1.1) happens while the shards are
-built (:func:`repro_torch.graphs.partition.make_client_shards`).
+built (:func:`repro_torch.graphs.partition.make_client_shards`);
+:func:`retention_pruned_sets` gives the per-client retained vertex sets
+of that rule over the whole graph, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,66 @@ import torch
 
 from repro_torch.graphs.partition import ClientShard
 from repro_torch.kernels import ops
+
+
+def retention_pruned_sets(
+    g,
+    part: np.ndarray,
+    limit: int | None,
+    *,
+    seed: int = 0,
+) -> dict[int, np.ndarray] | None:
+    """Per-client retained remote vertex sets under retention limit P_i.
+
+    Returns None for P_inf (no pruning).  Retention is per *boundary
+    vertex*: each local vertex keeps ≤ limit remote in-neighbours; the
+    retained set is the union.  Done offline before loading the subgraph,
+    as in the paper's implementation.
+    """
+    if limit is None:
+        return None
+    rng = np.random.default_rng(seed)
+    k = int(part.max()) + 1
+    if limit == 0:
+        return {c: np.zeros(0, np.int64) for c in range(k)}
+    # Vectorized over the whole CSR: one uniform priority per edge, and
+    # each boundary vertex keeps the ``limit`` remote in-neighbours with
+    # the smallest priorities — uniform without replacement, selected
+    # for every vertex at once instead of a per-vertex rng.choice loop
+    # (a test pins the selection rule against a per-vertex reference
+    # with the same priorities).
+    e_dst = np.repeat(np.arange(g.num_vertices), np.diff(g.indptr))
+    e_src = g.indices.astype(np.int64)
+    prio = rng.random(g.num_edges)
+    # only boundary (remote) edges compete for retention slots
+    bnd = np.nonzero(part[e_src] != part[e_dst])[0]
+    e_src, e_dst, prio = e_src[bnd], e_dst[bnd], prio[bnd]
+    if len(e_dst) == 0:
+        return {c: np.zeros(0, np.int64) for c in range(k)}
+    # CSR order survives the filter, so each destination's remote edges
+    # form one contiguous run — `limit` minimum.reduceat sweeps select
+    # its `limit` smallest priorities without any sort (priorities are
+    # continuous, so within-run duplicates have probability zero)
+    starts = np.r_[0, 1 + np.nonzero(np.diff(e_dst))[0]]
+    run_of = np.zeros(len(e_dst), np.int64)
+    run_of[starts] = 1
+    run_of = np.cumsum(run_of) - 1
+    work = prio.copy()
+    keep_mask = np.zeros(len(e_dst), bool)
+    for _ in range(min(limit, int(np.diff(np.r_[starts,
+                                                len(e_dst)]).max()))):
+        m = np.minimum.reduceat(work, starts)
+        sel = (work == m[run_of]) & np.isfinite(work)
+        keep_mask |= sel
+        work[sel] = np.inf
+    kept = np.nonzero(keep_mask)[0]
+    # group survivors by client: unique (client, src) pairs in one pass
+    key = part[e_dst[kept]].astype(np.int64) * g.num_vertices + e_src[kept]
+    key = np.unique(key)
+    cli = key // g.num_vertices
+    srcs = key % g.num_vertices
+    bounds = np.searchsorted(cli, np.arange(k + 1))
+    return {c: srcs[bounds[c]: bounds[c + 1]] for c in range(k)}
 
 
 def _reach_counts(shard: ClientShard, num_hops: int) -> np.ndarray:

@@ -43,8 +43,11 @@ Dual ledgers, as TcpTransport keeps them: every aggregation records the
 modelled round time next to the measured wall clock since serving
 began.
 
-The dynamic-graph band (opcodes 48–63) answers with an error frame:
-graph growth is ``ROADMAP.md`` Queue A item 5.
+Dynamic graphs (``growth=``, a :class:`repro_torch.dyngraph.GrowthSchedule`;
+sync mode only): each get_model response carries the round's
+``growth_epoch``, and the growth band (opcodes 48–63,
+:mod:`repro_torch.dyngraph.wire`) is a barrier that withholds its reply
+until every registered worker has applied that epoch.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.cost_model import NetworkModel
+from repro_torch.dyngraph import wire as dyn_wire
 from repro_torch.exchange import wire
 from repro_torch.exchange.codec import decode_leaves, encode_leaves
 from repro_torch.obsv import teleserve
@@ -73,9 +77,6 @@ _AGG_S = REGISTRY.histogram("pt_coord.agg_s")
 _BARRIER_S = REGISTRY.histogram("pt_coord.barrier_wait_s")
 _WEIGHT_BYTES = REGISTRY.counter("pt_coord.weight_bytes")
 
-#: the dynamic-graph opcode band (48..63) of the JAX coordinator
-GROWTH_BAND = range(48, 64)
-
 
 class CoordinatorState:
     """Shared state of one coordinator service."""
@@ -89,11 +90,17 @@ class CoordinatorState:
                  init_leaves: Optional[Sequence[np.ndarray]] = None,
                  eval_fn: Optional[Callable[[list[np.ndarray]], float]] = None,
                  net: NetworkModel | None = None,
+                 growth=None,
                  device: str = "cuda"):
         if mode not in ("sync", "async"):
             raise ValueError(f"unknown aggregation mode {mode!r}")
         if sample_frac is not None and not 0.0 < sample_frac <= 1.0:
             raise ValueError(f"sample_frac {sample_frac!r} not in (0, 1]")
+        if growth is not None and mode != "sync":
+            # growth epochs are keyed to the sync round index; async
+            # versions have no shared round boundary to apply deltas at
+            raise ValueError("dynamic-graph growth requires sync "
+                             "aggregation")
         self.num_clients = num_clients
         self.num_rounds = num_rounds          # sync: rounds; async: aggs
         self.mode = mode
@@ -106,6 +113,9 @@ class CoordinatorState:
         self.net = net or NetworkModel()
         # where the weight codec runs; immutable — read without the lock
         self.device = device
+        # growth schedule (anything with epoch_for_round) or None;
+        # immutable — read without the lock
+        self.growth = growth
 
         self.cond = threading.Condition()
         self.stop = threading.Event()
@@ -133,6 +143,9 @@ class CoordinatorState:
         # against it, and it tracks the worker's copy bit-identically
         self._served: dict[str, tuple[int, list[np.ndarray]]] = {}  # guarded-by: self.cond
         self._samples: dict[int, set[int]] = {}         # guarded-by: self.cond
+        # dynamic graphs: highest growth epoch each worker reported
+        # applied — the growth barrier predicate reads it
+        self.grown: dict[str, int] = {}                 # guarded-by: self.cond
         # weight-plane wire ledger (payload bytes of get_model responses
         # and update requests), per aggregation and cumulative
         self.weight_bytes_cum = 0                       # guarded-by: self.cond
@@ -352,6 +365,7 @@ class CoordinatorState:
             self._worker_conn.pop(worker, None)
             self.workers.pop(worker, None)
             self._served.pop(worker, None)    # re-join gets a full model
+            self.grown.pop(worker, None)      # re-join re-reports its epoch
             if self.mode == "sync":
                 # orphaned updates: a deregistered client's pending
                 # update must not survive into any aggregation — if all
@@ -395,10 +409,13 @@ class CoordinatorState:
             return telemetry
         # dynamic-graph band (48..63): its own wire layout and exchange
         # status replies, so it must not reach protocol.parse_body
-        if body and body[0] in GROWTH_BAND:
-            return wire.build_err(
-                f"opcode {body[0]}: the dynamic-graph growth barrier is "
-                "not ported yet (ROADMAP.md Queue A item 5)")
+        if body and dyn_wire.GROWTH_LO <= body[0] <= dyn_wire.GROWTH_HI:
+            try:
+                return self._op_growth(body)
+            except ConnectionError:
+                raise                  # let the conn loop tear down
+            except Exception as e:
+                return wire.build_err(f"{type(e).__name__}: {e}")
         try:
             op, header, tensors = protocol.parse_body(body)
         except Exception as e:
@@ -503,6 +520,11 @@ class CoordinatorState:
             head = {"round": self.round, "version": self.version,
                     "serial": self.serial, "done": self.done,
                     "accs": list(self.acc_history)}
+            if self.growth is not None:
+                # every worker of this round sees the same epoch, so
+                # they all check into the growth barrier (or all skip)
+                head["growth_epoch"] = int(
+                    self.growth.epoch_for_round(self.round))
             if self.sample_frac is not None and not self.done:
                 head["sampled"] = sorted(self._sampled(
                     self.round if self.mode == "sync" else self.version))
@@ -535,6 +557,27 @@ class CoordinatorState:
                 head["kind"] = "full"
             self._charge_wire("down", wire.tensors_nbytes(payload))
         return protocol.build_ok(head, payload)
+
+    def _op_growth(self, body: bytes) -> bytes:
+        """Growth barrier: a worker reports the growth epoch it just
+        applied; the reply is withheld until every registered worker
+        has applied that epoch, so no worker pulls embeddings across a
+        half-grown deployment (a boundary row registered by one worker
+        must exist before a neighbour's pull).  A dropped worker leaves
+        ``self.workers`` in :meth:`disconnect`, which notifies the
+        condition and lets the barrier re-evaluate."""
+        _, header = dyn_wire.parse_growth_request(body)
+        worker = str(header["worker_id"])
+        epoch = int(header["epoch"])
+        with self.cond, TRACE.span(
+                "coord.growth",
+                args={"round": int(header.get("round", -1)),
+                      "epoch": epoch}):
+            self.grown[worker] = max(epoch, self.grown.get(worker, 0))
+            self.cond.notify_all()
+            self._wait(lambda: all(self.grown.get(w, 0) >= epoch
+                                   for w in self.workers))
+        return wire.build_ok()
 
     def _op_pulled(self, header: dict) -> bytes:
         rnd = int(header["round"])

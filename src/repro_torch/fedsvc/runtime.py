@@ -15,8 +15,11 @@ and :class:`EvalHarness` take it.  A port participant's initial leaves
 come from the port's seeded init, which is not JAX's: a deployment that
 mixes the two packages seeds every participant from one set of leaves.
 ``graph="store:<dir>"`` opens a prebuilt mmap graph store
-(``python -m repro_torch.launch.build_store``); graph growth
-(``ROADMAP.md`` Queue A item 5) is refused, naming its item.
+(``python -m repro_torch.launch.build_store``).  ``growth`` (a
+:class:`repro_torch.dyngraph.GrowthSchedule` as a dict) makes every
+participant build its own :class:`~repro_torch.dyngraph.GrowthRuntime`,
+so workers in different processes grow alike without exchanging graph
+state; the coordinator only synchronises when they advance.
 """
 
 from __future__ import annotations
@@ -54,8 +57,11 @@ class RunConfig:
     seed: int = 0
     rounds: int = 2
     embed_addrs: list = dataclasses.field(default_factory=list)
-    #: dynamic graphs (a GrowthSchedule dict in the JAX package); only
-    #: None runs here
+    #: dynamic graphs: a GrowthSchedule as a plain dict
+    #: (``GrowthSchedule.to_dict()``, JSON-safe, so a RunConfig blob
+    #: still pins the deployment).  None = static graph.  Every
+    #: participant builds its own GrowthRuntime from it, so workers in
+    #: different processes grow identically without exchanging state.
     growth: Optional[dict] = None
 
     # -- construction ------------------------------------------------------
@@ -86,10 +92,6 @@ class RunConfig:
         just those clients (the fed_worker path); on a ``store:`` graph
         with prebuilt shard files the worker then mmaps only its own
         shards and never re-scans the graph."""
-        if self.growth:
-            raise NotImplementedError(
-                "growth=...: dynamic graphs are not ported yet "
-                "(ROADMAP.md Queue A item 5)")
         st = self.build_strategy()
         if embeddings is False:
             st = dataclasses.replace(st, use_embeddings=False,
@@ -110,6 +112,13 @@ class RunConfig:
                 for c in owned:
                     shards[c] = g.load_shard(c, self.num_clients,
                                              self.seed, limit)
+        growth = None
+        if self.growth:
+            from repro_torch.dyngraph import GrowthRuntime, GrowthSchedule
+            growth = GrowthRuntime(
+                GrowthSchedule.from_dict(self.growth), g,
+                self.num_clients, method=st.restream,
+                passes=st.restream_passes, seed=self.seed)
         return FederatedGNNTrainer(
             g, self.num_clients, st,
             conv=self.conv, num_layers=self.num_layers,
@@ -117,7 +126,8 @@ class RunConfig:
             batch_size=self.batch_size,
             epochs_per_round=self.epochs_per_round, lr=self.lr,
             transport_addrs=addrs, seed=self.seed, part=part,
-            shards=shards, only_clients=only_clients, device=device)
+            shards=shards, only_clients=only_clients, growth=growth,
+            device=device)
 
     # -- (de)serialisation -------------------------------------------------
 
@@ -158,8 +168,9 @@ class RunConfig:
                         metavar="HOST:PORT", dest="embed_addrs",
                         help="embed_server shard address (repeatable)")
         ap.add_argument("--growth", default=None, metavar="JSON",
-                        help="GrowthSchedule as JSON: not ported yet "
-                             "(ROADMAP.md Queue A item 5), refused")
+                        help="GrowthSchedule as JSON (repro_torch.dyngraph): "
+                             "the run applies seeded growth events at "
+                             "round boundaries")
         ap.add_argument("--device", default="cuda",
                         help="where this process trains and evaluates "
                              "(cuda | cpu)")
@@ -192,12 +203,22 @@ class EvalHarness:
 
     def __init__(self, cfg: RunConfig, *, device: str = "cuda"):
         self.trainer = cfg.build_trainer(embeddings=False, device=device)
+        self._evals = 0     # completed evaluations == closed sync rounds
 
     def init_leaves(self):
         return self.trainer.params_leaves()
 
     def evaluate_leaves(self, leaves) -> float:
         tr = self.trainer
+        if tr.growth is not None:
+            # sync aggregation evaluates once per round, in round order:
+            # evaluation r closes round r, whose graph carries
+            # epoch_for_round(r), the jump the workers applied at the
+            # top of the round, so the held-out sample tracks the grown
+            # graph
+            tr.apply_growth(tr.growth.epoch_for_round(self._evals),
+                            self._evals)
+        self._evals += 1
         return tr.evaluate(tr.leaves_to_params(leaves))
 
 
@@ -209,12 +230,12 @@ def make_coordinator_state(cfg: RunConfig, *, harness: EvalHarness | None
     coordinator.  ``device`` is where the harness evaluates and the
     weight codec runs."""
     from .coordinator import CoordinatorState   # avoid an import cycle
-    if cfg.growth:
-        raise NotImplementedError(
-            "growth=...: dynamic graphs are not ported yet "
-            "(ROADMAP.md Queue A item 5)")
     st = cfg.build_strategy()
     harness = EvalHarness(cfg, device=device) if harness is None else harness
+    growth = None
+    if cfg.growth:
+        from repro_torch.dyngraph import GrowthSchedule
+        growth = GrowthSchedule.from_dict(cfg.growth)
     return CoordinatorState(
         num_clients=cfg.num_clients, num_rounds=cfg.rounds,
         mode=st.aggregation, buffer_size=st.buffer_size,
@@ -222,4 +243,5 @@ def make_coordinator_state(cfg: RunConfig, *, harness: EvalHarness | None
         weight_codec=st.weight_codec,
         sample_frac=st.sample_frac, sample_seed=cfg.seed,
         init_leaves=harness.init_leaves(),
-        eval_fn=harness.evaluate_leaves, net=net, device=device)
+        eval_fn=harness.evaluate_leaves, net=net, growth=growth,
+        device=device)

@@ -41,8 +41,12 @@ the modelled ledger alike; a dropout probability or a deterministic
 ``drop_round`` kills the worker mid-round (after its pull, before its
 update), and with ``rejoin`` it comes back on a fresh connection.
 
-A coordinator that runs graph growth (``ROADMAP.md`` Queue A item 5) is
-refused.
+Dynamic graphs: when a sync get_model response carries a
+``growth_epoch``, the worker applies it to its trainer
+(:meth:`~repro_torch.core.federated.FederatedGNNTrainer.apply_growth`)
+and checks into the coordinator's growth barrier
+(:func:`repro_torch.dyngraph.wire.growth_rpc`) before its sampled skip,
+so an unsampled worker cannot wedge the sampled ones.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.federated import FederatedGNNTrainer
+from repro_torch.dyngraph import wire as dyn_wire
 from repro_torch.exchange.codec import decode_leaves, encode_leaves
 from repro_torch.exchange.delta import LeafErrorFeedback
 from repro_torch.obsv.metrics import REGISTRY
@@ -236,11 +241,20 @@ class FedWorker:
                 return
             r = int(head["round"])
             TRACE.set_context(round=r, worker=self.worker_id)
-            # a growth epoch needs the dynamic-graph barrier
-            if int(head.get("growth_epoch", 0)) > 0:
-                raise NotImplementedError(
-                    "the coordinator runs graph growth, which is not "
-                    "ported yet (ROADMAP.md Queue A item 5)")
+            # dynamic graphs: apply this round's growth epoch BEFORE the
+            # sampled skip — every worker must check into the growth
+            # barrier (an unsampled worker skipping it would wedge the
+            # sampled workers waiting on its boundary registrations)
+            ge = int(head.get("growth_epoch", 0))
+            if ge > 0 and tr.growth is not None:
+                with TRACE.span("worker.growth", args={"epoch": ge}):
+                    tr.apply_growth(ge, r)
+                    dyn_wire.growth_rpc(
+                        client.sock,
+                        {"worker_id": self.worker_id, "round": r,
+                         "epoch": ge,
+                         "num_vertices": int(tr.g.num_vertices),
+                         "num_edges": int(tr.g.num_edges)})
             sampled = head.get("sampled")
             mine = self.client_ids if sampled is None else \
                 [c for c in self.client_ids if c in sampled]

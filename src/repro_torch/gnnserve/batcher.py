@@ -13,8 +13,10 @@ mix freely with escalated survivors, exactly like new sequences joining
 in-flight decodes in the LLM batcher.
 
 No request is ever dropped or duplicated: a request id lives in exactly
-one depth queue until a step returns its result (pinned by the JAX
-package's bursty-drain test and this port's serving test).
+one depth queue until a step returns its result and records it in
+``completed`` (pinned by the JAX package's bursty-drain test and this
+port's serving test); :meth:`QueryBatcher.pop_completed` drains that
+record.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ class QueryBatcher:
         self._queues = {d: collections.deque()
                         for d in engine.depth_schedule}
         self._next_rid = 0
+        self.completed: dict[int, ServedResult] = {}
         self.served = 0
         self.exits_by_depth: dict[int, int] = {}
 
@@ -108,6 +111,7 @@ class QueryBatcher:
                 res = ServedResult(rid=rid, vid=vid, pred=int(preds[i]),
                                    conf=float(confs[i]), depth=depth,
                                    t_submit=t0, t_done=now)
+                self.completed[rid] = res
                 self.served += 1
                 self.exits_by_depth[depth] = \
                     self.exits_by_depth.get(depth, 0) + 1
@@ -118,4 +122,18 @@ class QueryBatcher:
             else:                    # escalate to the next schedule depth
                 nxt = sched[sched.index(depth) + 1]
                 self._queues[nxt].append((rid, lid, vid, thr, t0))
+        return out
+
+    def run_to_completion(self) -> list[ServedResult]:
+        """Step until no request is waiting; every retired result."""
+        out = []
+        while self.pending():
+            out.extend(self.step())
+        return out
+
+    def pop_completed(self) -> list[ServedResult]:
+        """The results retired since the last call, in retirement
+        order."""
+        out = list(self.completed.values())
+        self.completed.clear()
         return out

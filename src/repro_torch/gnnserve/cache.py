@@ -58,6 +58,13 @@ class HotEmbeddingCache:
         total = self.hits + self.misses + self.stale_refreshes
         return self.hits / total if total else 0.0
 
+    def reset_stats(self) -> None:
+        """Zero the counters without touching cached rows, to separate
+        warm-fill transients from steady state."""
+        self.hits = self.misses = self.stale_refreshes = 0
+        self.evictions = 0
+        self.pull_time = 0.0
+
     def stats(self) -> dict:
         return {
             "rows": len(self._rows),

@@ -316,11 +316,14 @@ class ServingPlane:
 
     def step(self) -> list:
         """One forward per non-idle shard batcher; returns newly
-        completed results."""
+        completed results, popped from the batchers' ``completed``
+        records so a long-running plane (the TCP frontend) keeps no
+        result it has returned."""
         out = []
         for b in self.batchers.values():
             if b.pending():
-                out.extend(b.step())
+                b.step()
+            out.extend(b.pop_completed())
         return out
 
     def drain(self) -> list:

@@ -97,3 +97,28 @@ def from_edges(
     np.add.at(indptr, dst + 1, 1)
     indptr = np.cumsum(indptr)
     return Graph(indptr=indptr, indices=src.astype(np.int32), **node_data)
+
+
+def induced_subgraph(g: Graph, nodes: np.ndarray) -> tuple[Graph, np.ndarray]:
+    """Vertex-induced subgraph; returns (subgraph, global_ids) where
+    ``global_ids[i]`` is the global id of local vertex ``i``."""
+    nodes = np.asarray(nodes, dtype=np.int64)
+    g2l = np.full(g.num_vertices, -1, dtype=np.int64)
+    g2l[nodes] = np.arange(len(nodes))
+    src_all, dst_all = [], []
+    for li, u in enumerate(nodes):
+        nbrs = g.neighbours(u)
+        loc = g2l[nbrs]
+        keep = loc >= 0
+        src_all.append(loc[keep])
+        dst_all.append(np.full(int(keep.sum()), li, dtype=np.int64))
+    src = np.concatenate(src_all) if src_all else np.zeros(0, np.int64)
+    dst = np.concatenate(dst_all) if dst_all else np.zeros(0, np.int64)
+    sub = from_edges(
+        len(nodes), src, dst, symmetric=False, dedup=False,
+        features=None if g.features is None else g.features[nodes],
+        labels=None if g.labels is None else g.labels[nodes],
+        train_mask=None if g.train_mask is None else g.train_mask[nodes],
+        num_classes=g.num_classes, name=f"{g.name}/induced",
+    )
+    return sub, nodes

@@ -15,6 +15,10 @@ package's) at the host:port of its "listening on" line.  Sync/async, the
 FedBuff knobs, weight-wire compression and client sampling come from the
 strategy (``--set aggregation='"async"' --set weight_codec=int8 ...``).
 
+``--growth JSON`` (a ``GrowthSchedule`` dict, given to every worker
+too; sync mode only) makes each round carry its growth epoch and holds
+the workers at the growth barrier until all of them have grown.
+
 The process exits once all rounds aggregated (plus a short linger so
 workers see the done flag), printing one JSON line per aggregation and
 then ``fed_coordinator DONE`` (or ``TIMEOUT``).

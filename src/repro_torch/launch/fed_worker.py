@@ -12,6 +12,9 @@ with the coordinator (``--coordinator``).
         --clients 2 --strategy E --rounds 2 \\
         --embed 127.0.0.1:7040 --embed 127.0.0.1:7041 [--device cpu]
 
+``--growth JSON`` (a ``GrowthSchedule`` dict, the coordinator's too)
+grows the worker's own replica of the graph at each round the
+coordinator's growth epoch names, and reports it at the growth barrier.
 Scenario injection (``--pacing``, ``--straggler-s``, ``--dropout-prob``,
 ``--drop-round`` with ``--rejoin``) as in the JAX launcher.
 ``--obs-port`` runs a telemetry-only listener so ``obs_dump`` can scrape

@@ -20,6 +20,7 @@ block on the card carries that CSR in place of its padded edge lists.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Sequence
 
@@ -200,6 +201,22 @@ def loss_fn(model: GNN, batch: dict, features: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, seed_labels[:, None])[:, 0]
     return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
+def sgd_train_step(model: GNN, batch: dict, features: torch.Tensor,
+                   caches: Sequence[torch.Tensor], labels: torch.Tensor,
+                   *, lr: float) -> tuple[GNN, torch.Tensor]:
+    """One plain SGD step, ``p - lr * grad`` on every leaf, as the JAX
+    ``sgd_train_step``: a new model (``model`` is left as it was) and
+    the step's loss."""
+    leaves = model.leaves()
+    loss = loss_fn(model, batch, features, caches, labels)
+    grads = torch.autograd.grad(loss, leaves)
+    new = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, w, g in zip(new.leaves(), leaves, grads):
+            p.copy_(w - lr * g)
+    return new, loss.detach()
 
 
 def init_gnn(conv: str, in_dim: int, hidden: int, out_dim: int,

@@ -478,3 +478,31 @@ def test_make_transport_refuses_what_jax_refuses(kw):
         jmake_transport(3, H, **kw)
     with pytest.raises(ValueError):
         tmake_transport(3, H, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("n,L", [(3, 3), (17, 4)])
+def test_server_push_pull_match_jax(n, L):
+    """``EmbeddingServer.push`` / ``pull``: the same rows back, the same
+    modelled seconds and the same log as the JAX server's."""
+    ids = np.arange(n) * 3 + 1
+    vals = [_rows(n, 40 + l) for l in range(L - 1)]
+    js, ts = JServer(L, H), TServer(L, H, device="cpu")
+    for s in (js, ts):
+        s.register(ids)
+    assert ts.push(ids, vals) == js.push(ids, vals) > 0
+    perm = np.random.default_rng(n).permutation(n)
+    (tg, tt), (jg, jt) = ts.pull(ids[perm]), js.pull(ids[perm])
+    assert tt == jt > 0
+    for a, b, v in zip(tg, jg, vals):
+        np.testing.assert_array_equal(_np(a), b)
+        np.testing.assert_array_equal(_np(a), v[perm])
+    (t1, _), (j1, _) = ts.pull(ids, layers=[L - 1]), \
+        js.pull(ids, layers=[L - 1])
+    np.testing.assert_array_equal(_np(t1[0]), j1[0])
+    assert ts.pull(ids, layers=[])[1] == js.pull(ids, layers=[])[1] == 0.0
+    assert ts.push(ids[:0], [v[:0] for v in vals]) == 0.0
+    for f in ("bytes", "rpcs", "embeddings", "seconds"):
+        assert getattr(ts.log, f) == getattr(js.log, f), f
+    assert ts.log.rpcs == 3
+    with pytest.raises(ValueError, match="layer blocks"):
+        ts.push(ids, vals[:-1])

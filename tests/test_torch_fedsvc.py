@@ -35,6 +35,8 @@ from repro.fedsvc.worker import FedWorker as JWorker
 from repro.fedsvc.worker import run_in_thread as jrun_in_thread
 from repro.graphs import make_graph as jmake_graph
 from repro.launch.embed_server import serve_in_thread as jembed_serve
+from repro_torch.dyngraph import GrowthSchedule
+from repro_torch.dyngraph import wire as growth_wire
 from repro_torch.exchange import codec as tcodec
 from repro_torch.exchange import wire
 from repro_torch.exchange.delta import LeafErrorFeedback
@@ -173,10 +175,15 @@ def test_registration_and_model_roundtrip():
             for x, y in zip(init, leaves):       # byte-exact round trip
                 assert x.tobytes() == y.tobytes()
                 assert x.dtype == y.dtype and x.shape == y.shape
-            # the growth band answers in the embedding plane's layout
-            wire.send_frame(a.sock, bytes([48]))
-            with pytest.raises(RuntimeError, match="item 5"):
-                wire.parse_response(wire.recv_frame(a.sock))
+            # the growth band is a barrier, answering in the embedding
+            # plane's layout: w0's report is answered once w1's is in
+            head = {"round": 0, "epoch": 1, "num_vertices": 8,
+                    "num_edges": 16}
+            wire.send_frame(a.sock, growth_wire.build_growth(
+                dict(head, worker_id="w0")))
+            growth_wire.growth_rpc(b.sock, dict(head, worker_id="w1"))
+            assert not wire.parse_response(wire.recv_frame(a.sock))
+            assert state.grown == {"w0": 1, "w1": 1}
 
 
 def test_sync_barrier_semantics():
@@ -604,7 +611,7 @@ def test_runconfig_and_refusals(tmp_path):
     st = back.build_strategy()
     assert st.codec == "int8" and st.aggregation == "async"
     assert st.transport == "tcp" and st.prefetch_frac == 0.25
-    # graph stores (item 4) open; only growth (item 5) stays refused
+    # graph stores (item 4) open, and a growth schedule (item 5) runs
     from repro_torch.graphs import make_graph
     from repro_torch.graphstore import store_from_graph
     g = make_graph("arxiv", scale=0.1, seed=7)
@@ -616,8 +623,15 @@ def test_runconfig_and_refusals(tmp_path):
         g.num_vertices
     with pytest.raises(FileNotFoundError):
         RunConfig(graph=f"store:{tmp_path / 'nowhere'}").build_graph()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RunConfig(growth={"scale": 1}).build_trainer(device="cpu")
+    sched = GrowthSchedule(scale=8, num_events=1, num_classes=8,
+                           feat_dim=16)
+    sched.build_base(str(tmp_path / "base"))
+    grown = RunConfig(graph=f"store:{tmp_path / 'base'}", strategy="D",
+                      growth=sched.to_dict(), batch_size=64,
+                      epochs_per_round=1).build_trainer(device="cpu")
+    assert len(grown.train(2)) == 2
+    assert grown.growth.applied_epoch == 1
+    assert grown.g.num_vertices == len(grown.part) == 256
     tr = RunConfig(**CFG_KW).build_trainer(only_clients=[1], device="cpu")
     with pytest.raises(RuntimeError, match="no eval"):
         tr.evaluate()

@@ -300,3 +300,33 @@ def test_card_blocks_carry_the_csr_in_place_of_the_edge_lists(port_shards):
                 assert a.tobytes() == b.tobytes()
             else:
                 assert a == b
+
+
+@pytest.mark.parametrize("conv", ["graphconv", "sageconv"])
+def test_sgd_train_step_matches(shard, conv):
+    """One plain SGD step: the new leaves and the loss within the
+    module's tolerance of the JAX ``sgd_train_step``; the model given is
+    left as it was."""
+    sh, g = shard
+    params, model = _params(conv, g, 4)
+    sampler = NeighborSampler(sh, 5, L, 32, seed=3)
+    mb = sampler.sample_batch(sh.train_vertices()[:32])
+    caches = _caches(sh, 5)
+    jnew, jloss = jgnn.sgd_train_step(
+        params, jgnn.blocks_to_arrays(mb), jnp.asarray(sh.features),
+        [jnp.asarray(c) for c in caches], jnp.asarray(sh.labels), lr=0.1,
+        conv=conv)
+    before = [p.detach().clone() for p in model.leaves()]
+    tnew, tloss = tgnn.sgd_train_step(
+        model, tgnn.blocks_to_arrays(mb, "cpu"),
+        torch.from_numpy(np.asarray(sh.features, np.float32)),
+        [torch.from_numpy(c) for c in caches],
+        torch.from_numpy(np.asarray(sh.labels, np.int64)), lr=0.1)
+    assert float(tloss) == pytest.approx(float(jloss), rel=TOL, abs=TOL)
+    for a, b in zip(tnew.leaves(), jax.tree_util.tree_leaves(jnew)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=TOL, atol=TOL)
+    for p, q in zip(model.leaves(), before):
+        assert torch.equal(p, q)
+    assert any(not torch.equal(p, q)
+               for p, q in zip(tnew.leaves(), model.leaves()))

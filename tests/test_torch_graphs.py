@@ -117,3 +117,40 @@ def test_scored_shards_and_scores_identical():
         for kind in ("frequency", "degree", "bridge"):
             _same(jpruning.score_remote_nodes(sh, kind, 3),
                   tpruning.score_remote_nodes(sh, kind, 3), kind)
+
+
+@pytest.mark.parametrize("limit,seed", [(None, 0), (0, 0), (1, 0), (3, 0),
+                                        (4, 9)])
+def test_retention_pruned_sets_identical(limit, seed):
+    """``retention_pruned_sets`` (P_inf, P_0 and three limits) gives the
+    JAX package's per-client sets."""
+    from repro.core.pruning import retention_pruned_sets as jsets
+    from repro_torch.core.pruning import retention_pruned_sets as tsets
+
+    g = jgraphs.make_graph("arxiv", scale=0.15, seed=7)
+    tg = tgraphs.make_graph("arxiv", scale=0.15, seed=7)
+    part = jgraphs.bfs_partition(g, 4, seed=0)
+    want, got = jsets(g, part, limit, seed=seed), tsets(tg, part, limit,
+                                                       seed=seed)
+    if limit is None:
+        assert want is None and got is None
+        return
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for c in want:
+        _same(got[c], want[c], f"client {c}")
+    if limit:
+        assert any(len(v) for v in got.values())
+
+
+def test_induced_subgraph_identical():
+    g = jgraphs.make_graph("reddit", scale=0.2, seed=3)
+    tg = tgraphs.make_graph("reddit", scale=0.2, seed=3)
+    nodes = np.random.default_rng(1).choice(g.num_vertices, 120,
+                                            replace=False)
+    (js, jids), (ts, tids) = jgraphs.induced_subgraph(g, nodes), \
+        tgraphs.induced_subgraph(tg, nodes)
+    _same(tids, jids, "global ids")
+    for f in ("indptr", "indices", "features", "labels", "train_mask"):
+        _same(getattr(ts, f), getattr(js, f), f)
+    assert (ts.num_classes, ts.name) == (js.num_classes, js.name)
+    assert ts.num_edges > 0

@@ -104,3 +104,14 @@ def test_kernels_build_without_fast_math():
         assert "__fdividef" not in cu.read_text(), cu.name
     assert set(_build.SIGNATURES) == {p.stem for p in
                                       (PORT / "csrc").glob("*.cu")}
+
+
+def test_dyngraph_is_numpy_but_its_wire():
+    """The growth plane's schedule, overlay, restreaming and runtime
+    import no torch (a store tool can grow a graph without it); only
+    its wire, on the exchange framing, does."""
+    for p in (PORT / "dyngraph").glob("*.py"):
+        roots = {m for m, _ in _imported_roots(p)}
+        assert ("torch" in roots) is False, p
+    wire_src = (PORT / "dyngraph" / "wire.py").read_text(encoding="utf-8")
+    assert "repro_torch.exchange.wire" in wire_src

@@ -151,3 +151,49 @@ def test_serving_matches_jax(trainers):
             np.testing.assert_array_equal(
                 teng.offline_predict(seeds[i: i + 16]),
                 jeng.offline_predict(seeds[i: i + 16]))
+
+
+def test_batcher_drain_and_cache_reset_match_jax(trainers):
+    """``QueryBatcher.run_to_completion`` / ``pop_completed`` and
+    ``HotEmbeddingCache.reset_stats`` on one shard's batcher of each
+    plane, over the same query stream: the same retired requests in the
+    same order, the same completed record, and counters zeroed with the
+    cached rows kept, as in JAX."""
+    tr = trainers["fp32"]
+    jbundle = tr.export_for_serving()
+    model, shards, tt = _port_side(tr, _snapshot(tr.exchange.server), "fp32")
+    tbundle = {"model": model, "conv": "graphconv", "num_layers": L,
+               "hidden": HIDDEN, "part": np.asarray(tr.part),
+               "shards": {sh.client_id: sh for sh in shards},
+               "transport": tt, "codec": "fp32"}
+    kw = dict(cache_rows=64, serve_fanout=5, batch_size=16,
+              depth_schedule=[1, 3])
+    jplane = jbuild_serving(jbundle, **kw)
+    tplane = tbuild_serving(tbundle, device="cpu", **kw)
+    vids = np.nonzero(np.asarray(tr.part) == 0)[0][::7][:40]
+    thrs = np.random.default_rng(2).choice([1.0, 0.5], size=len(vids))
+    out = []
+    for plane in (jplane, tplane):
+        b = plane.batchers[0]
+        for v, t in zip(vids, thrs):
+            b.submit(int(v), float(t))
+        done = b.run_to_completion()
+        assert b.pending() == 0 and len(done) == len(vids)
+        popped = b.pop_completed()
+        assert [r.rid for r in popped] == [r.rid for r in done]
+        assert b.pop_completed() == []
+        out.append([(r.rid, r.vid, r.pred, r.depth) for r in done])
+    assert out[0] == out[1]
+    # the plane pops what it returns: a long-running plane keeps nothing
+    rids = [tplane.submit(int(v)) for v in vids[:8]]
+    assert sorted(r.rid for r in tplane.drain()) == rids
+    assert all(not b.completed for b in tplane.batchers.values())
+    for plane in (jplane, tplane):
+        rows = plane.cache.stats()["rows"]
+        assert rows > 0
+        plane.cache.reset_stats()
+        st = plane.cache.stats()
+        assert st["rows"] == rows and plane.cache.hit_rate == 0.0
+        assert st["hits"] == st["misses"] == st["stale_refreshes"] == 0
+        assert st["evictions"] == 0 and plane.cache.pull_time == 0.0
+    assert tplane.cache.stats() == jplane.cache.stats()

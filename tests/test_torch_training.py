@@ -217,18 +217,6 @@ def test_coordinator_fields_leave_the_rounds_unchanged(over):
         assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
 
 
-@pytest.mark.parametrize("kw,item", [(dict(growth=object()), 5)])
-def test_unported_configurations_are_refused(kw, item):
-    """Only graph growth (item 5) is still refused; the TCP wire,
-    shard-local trainers and graph stores with prebuilt shards run
-    (``tests/test_torch_wire.py``, ``tests/test_torch_fedsvc.py``,
-    ``tests/test_torch_graphstore.py``)."""
-    with pytest.raises(NotImplementedError,
-                       match=rf"not ported.*ROADMAP\.md.*item {item}\)"):
-        TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2,
-                 tstrategies()["E"], device="cpu", **kw)
-
-
 def test_prebuilt_shards_are_accepted():
     """``shards=`` (ROADMAP.md Queue A item 4) runs: a trainer given the
     shards another trainer built takes them as they are and trains the
