@@ -8,8 +8,9 @@ It takes no arguments: it always runs the one configuration below.
 Phases, each of which fails the run:
 
 1. Setup: print the card's name and power limit, build every CUDA kernel
-   from ``src/repro_torch/csrc`` (one nvcc per source, in parallel) and
-   build the reddit-preset graph, its partition and client shards.
+   from ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
+   while the host builds the reddit-preset graph, its partition and
+   client shards.
 2. Kernels: each kernel entry point against its plain PyTorch version on
    the card, at the slice's shapes and on edge cases: the int8 codec
    (the encode also on a column slice and at an odd float, plain and
@@ -103,21 +104,22 @@ Phases, each of which fails the run:
 11. LM decode: smollm-360m at full width in bf16 under long_500k
    (sliding window 8192), seeded random weights on the card, 8 lanes, a
    cache of 8192 slots that has seen 8128 tokens with seeded K/V, then
-   256 greedy steps read back as the serve launcher does (the ring wraps
-   at step 64; with 8192 slots for a window of 8192 the ring's overwrite,
-   not the window mask, then keeps the window); counters zeroed just before, and the decode attention
-   must have launched 256 × 32 times.  Tokens/s, step p50 / p99 (CUDA
+   128 greedy steps read back as the serve launcher does (the ring
+   wraps at step 64; with 8192 slots for a window of 8192 the ring's
+   overwrite, not the window mask, then keeps the window); counters zeroed just before, and the decode attention
+   must have launched 128 × 32 times.  Tokens/s, step p50 / p99 (CUDA
    events), the decode attention's device time per step, the device's
    idle share over 8 profiled steps and the peak memory are printed.
-   Then ``ContinuousBatcher`` with 8 lanes serves 16 requests of 64-token
-   prompts and 64 new tokens each: every request completes once with all
-   its tokens.
+   Then ``ContinuousBatcher`` with 8 lanes serves 8 requests of 64-token
+   prompts and 64 new tokens each: every request
+   completes once with all its tokens.
 12. LM reference: the same model in fp32 on the card and on the CPU
    (plain versions) from one set of parameters and one cache (8188 of
    8192 slots seen), 8 teacher-forced steps; logits within 1e-3 of the
    largest logit at every step, TF32 off.
-13. Sharded training (after step 8): the same graph and partition, 4
-   clients, OPG + int8 + degree scores over 4 embedding-server shards
+13. Sharded training (after step 8): the reddit preset at scale 8
+   (32,000 vertices; cut from step 4's 58, whose 4-shard set-up rebuilt
+   every client shard in 33-44 s), BFS-partitioned, 4 clients, OPG + int8 + degree scores over 4 embedding-server shards
    with pull-frequency placement (``rebalance_round=1``), AdamW lr 1e-2,
    2 epochs a round, each client's epochs cut to 16 minibatches, tracing
    on.  Built and run through the trainer's own code: construct,
@@ -235,6 +237,30 @@ Phases, each of which fails the run:
    coordinator with the growth barrier and two port workers of two
    clients each; the accuracy history and leaves equal the in-process
    grown trainer's over 2 shards, bit for bit.
+18. The LM zoo: phi3.5-moe cut to 2 layers (its 78 GiB of bf16 weights
+   fit no card), deepseek-v2-lite to 3 (the dense head layer and 2 MoE
+   layers), llama-3.2-vision to one super-block (4 self-attention
+   layers, the gated cross layer, the tail), mamba2-1.3b, hymba-1.5b and
+   whisper-tiny at full depth; all at published widths in bf16 with
+   seeded random weights on the card.  (a) Prefill: ``lm.forward`` over
+   2 prompts of 1024 tokens (whisper 448) from ``synthetic_batches``,
+   with (2, 1600, 1280) vision and (2, 1500, 384) frame inputs: finite
+   logits; prefill tokens/s by CUDA events after a warm-up, peak memory
+   and the device's idle share over one profiled forward.  (b) Decode: 4
+   lanes, a 1024-slot cache that has seen 992 tokens with every floating
+   leaf seeded, 32 greedy steps read back; counters zeroed just before:
+   the decode attention must launch steps × (self + cross layers) times
+   (none for mamba2), each ring advance a slot a step and each SSM state
+   move; tokens/s and step p50 / p99.  (c) ``ContinuousBatcher`` on
+   mamba2 and deepseek, 8 requests on 4 lanes: each completes once with
+   all its tokens.  (d) Each family in fp32 with 2 layers (the VLM one
+   super-block) on the card and the CPU from one set of parameters: the
+   forward over 2 × 8 tokens and 8 teacher-forced decode steps over a
+   wrapped 16-slot ring, within 1e-3 of the largest logit.  (e) The
+   decode attention at the zoo's shapes (rows 8M: MLA, dh 192; 8H:
+   hymba, G 5; 8X: the VLM's cross-decode, 1600 slots; 8W: whisper's,
+   1500), checked and timed as in step 10, their launches from (b) by
+   shape.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -256,6 +282,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 TOL = 1e-6
@@ -272,13 +299,14 @@ TRAIN_KERNELS = SERVE_KERNELS + ("segment_mean_bwd", "topk_mask")
 PAPERS_SCORES = 40_000_000    # remote-vertex scores at Papers scale
 LM_ARCH = "smollm-360m"       # the serve launcher's default, full width
 LM_LANES = 8
-LM_DECODE_STEPS = 256         # the ring wraps after the first 64
+LM_DECODE_STEPS = 128         # the ring wraps after the first 64
 LM_PROFILED_STEPS = 8
-LM_REQUESTS = 16              # batcher: 64-token prompts, 64 new tokens
+LM_REQUESTS = 8               # batcher: 64-token prompts, 64 new tokens
 LM_PROMPT = 64
 LM_NEW = 64
 LM_REF_STEPS = 8              # card vs CPU, fp32, teacher-forced
 SHARDS = 4                    # embedding-server shards of the sharded phase
+SHARDED_SCALE = 8.0           # its graph: 32,000 vertices (cut from 58)
 SHARDED_STEPS = 16            # minibatches per client epoch there
 SHARDED_EPOCHS = 2            # the overlapped push runs after epoch 1
 SHARDED_QUERIES = 512
@@ -2181,12 +2209,13 @@ def swa_inputs(torch, np, B, T, Hkv, G, dh, seed, dtype, *,
 
 
 def swa_case(torch, args, window) -> dict:
-    """The decode attention at one bf16 shape: held to one bf16 step of
-    each element of its plain version (2^-7 of it, plus 1e-5 near zero)
-    and to its own bytes over two launches, then timed beside the plain
-    version and one ``scaled_dot_product_attention`` call.  The bound
-    counts K and V of the kept slots only: a masked slot's V row has
-    weight 0 and its K row's score is replaced."""
+    """The decode attention at one bf16 shape (``window`` None: causal
+    only): held to one bf16 step of each element of its plain version
+    (2^-7 of it, plus 1e-5 near zero) and to its own bytes over two
+    launches, then timed beside the plain version and one
+    ``scaled_dot_product_attention`` call.  The bound counts K and V of
+    the kept slots only: a masked slot's V row has weight 0 and its K
+    row's score is replaced."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -2203,7 +2232,9 @@ def swa_case(torch, args, window) -> dict:
                   / (2.0 ** -7 * want.abs() + 1e-5)).max())
     check(over <= 1.0, f"swa bf16 off by {err} at {tuple(k.shape)}, "
                        f"{over:.3g} of one bf16 step")
-    keep = valid & (pos <= qpos[:, None]) & (pos > qpos[:, None] - window)
+    keep = valid & (pos <= qpos[:, None])
+    if window is not None:
+        keep &= pos > qpos[:, None] - window
     mask = keep[:, None, None, :]
     qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
@@ -2310,10 +2341,12 @@ def fill_kv(torch, cache: dict, seed: int) -> None:
 
 
 def tree_to(tree, device):
-    """A copy of a nested dict of tensors (None leaves kept) on
+    """A copy of a nested dict or list of tensors (None leaves kept) on
     ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return None if tree is None else tree.to(device, copy=True)
 
 
@@ -3648,6 +3681,381 @@ def growth_fedsvc_phase(torch, np, dev: str = DEV, scale: int = 12,
             "round_wall_s": [h["wall_s"] for h in state.history]}, launches
 
 
+# -- phase 18: the LM zoo -----------------------------------------------------
+
+#: phase 18's architectures at published widths: arch id → the depth run
+#: (None: the published depth).  Phi-3.5-MoE does not fit one card
+#: (78 GiB of bf16 weights); deepseek keeps its dense head layer and two
+#: MoE layers; the VLM one super-block (4 self-attention layers, the
+#: cross layer and the tail).
+ZOO = {"phi3.5-moe-42b-a6.6b": 2, "deepseek-v2-lite-16b": 3,
+       "mamba2-1.3b": None, "hymba-1.5b": None,
+       "llama-3.2-vision-11b": 5, "whisper-tiny": None}
+ZOO_BATCH = 2                 # prefill: 2 prompts of 1024 tokens
+ZOO_PROMPT = 1024
+ZOO_WHISPER_PROMPT = 448      # whisper's decoder context
+ZOO_LANES = 4                 # decode: 4 lanes, 1024 slots, 992 seen
+ZOO_CAPACITY = 1024
+ZOO_STEPS = 32
+ZOO_BATCHER = ("mamba2-1.3b", "deepseek-v2-lite-16b")
+ZOO_REQUESTS = 8              # batcher: 8 requests on the 4 lanes
+ZOO_REQ_PROMPT = 8
+ZOO_REQ_NEW = 8
+ZOO_REF_STEPS = 8             # card vs CPU, fp32, 2 layers (VLM: 5)
+#: rows of the report at the zoo's decode-attention shapes: (row, name,
+#: batch, slots, kv heads, G, dh, window, cross-attention)
+ZOO_SWA = (
+    ("8M", "swa_attention_decode/mla", 4, 1024, 16, 1, 192, None, False),
+    ("8H", "swa_attention_decode/hymba", 4, 1024, 5, 5, 64, 8192, False),
+    ("8X", "swa_attention_decode/cross_vlm", 4, 1600, 8, 4, 128, None,
+     True),
+    ("8W", "swa_attention_decode/cross_whisper", 4, 1500, 6, 1, 64, None,
+     True))
+
+
+def zoo_config(arch: str, depth: int | None, dtype: str = "bfloat16"):
+    """The published config in ``dtype``, cut to ``depth`` layers (the
+    audio encoder too)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    over: dict = {"param_dtype": dtype}
+    if depth is not None:
+        over["num_layers"] = depth
+        if cfg.family == "audio":
+            over["encoder_layers"] = depth
+    return dataclasses.replace(cfg, **over)
+
+
+def zoo_attention_layers(cfg) -> int:
+    """Decode-attention launches a decode step makes: the self-attention
+    layers (MLA and hybrid included) plus the cross layers."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "vlm":        # inner self layers, the tail, the cross
+        return cfg.num_layers // cfg.cross_attn_every \
+            * (cfg.cross_attn_every + 1)
+    if cfg.family == "audio":
+        return 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def named_leaves(tree, name: str):
+    """Every tensor stored under key ``name`` in a nested cache tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == name and not isinstance(v, (dict, list)):
+                yield v
+            else:
+                yield from named_leaves(v, name)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from named_leaves(v, name)
+
+
+def fill_cache(torch, cache, seed: int) -> None:
+    """Seeded normal values, drawn on the card, in every floating leaf of
+    a cache tree: K/V, MLA latents, cross K/V, SSM state and windows."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def fill(tree):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            if isinstance(v, (dict, list)):
+                fill(v)
+            elif v.is_floating_point():
+                v.normal_(generator=gen)
+    fill(cache)
+
+
+@contextlib.contextmanager
+def swa_launches_by_shape(tally: dict):
+    """Within the block, each call of the decode attention's CUDA wrapper
+    adds the change of the ``swa_attention_decode`` launch counter to
+    ``tally[(T, Hkv, G, dh)]``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as swa_mod
+
+    inner = swa_mod.swa_attention_decode
+
+    def counted(q, k, *args, **kw):
+        before = ops.launch_counts()["swa_attention_decode"]
+        out = inner(q, k, *args, **kw)
+        key = (k.shape[1], k.shape[2], q.shape[1] // k.shape[2], k.shape[3])
+        tally[key] = (tally.get(key, 0)
+                      + ops.launch_counts()["swa_attention_decode"] - before)
+        return out
+    swa_mod.swa_attention_decode = counted
+    try:
+        yield tally
+    finally:
+        swa_mod.swa_attention_decode = inner
+
+
+def zoo_prefill(torch, cfg, params, card: str) -> dict:
+    """18a: ``lm.forward`` over 2 prompts from ``synthetic_batches`` (with
+    the VLM's vision and audio's frames inputs): the first call's
+    seconds, then the forward's ms by CUDA events (mean of 2), prefill
+    tokens/s, the peak memory and the device's idle share over one
+    profiled forward; the logits must be finite."""
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import lm
+
+    S = ZOO_WHISPER_PROMPT if cfg.family == "audio" else ZOO_PROMPT
+    batch = next(synthetic_batches(cfg, batch=ZOO_BATCH, seq=S, seed=0,
+                                   device=DEV))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = lm.forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (ZOO_BATCH, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"18a {cfg.name}: prefill logits {tuple(logits.shape)} not finite "
+          "or of the wrong shape")
+    del logits
+    ms = time_ms(torch, lambda: lm.forward(params, cfg, batch), iters=2,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall: list[float] = []
+
+    def run():
+        t1 = time.perf_counter()
+        lm.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t1)
+    evs = device_events(torch, run, sessions=2)
+    busy = busy_share(evs, wall[-1])
+    return {"batch": ZOO_BATCH, "prompt": S, "first_call_s": first_s,
+            "forward_ms": ms,
+            "prefill_tokens_per_s": ZOO_BATCH * S / ms * 1e3,
+            "peak_mem_gb": peak, "aux": float(aux),
+            "profiled_forward_s": wall[-1],
+            "device_idle_share": busy["device_idle_share"],
+            "top_device_ms": dict(list(busy["top_device_ms"].items())[:4]),
+            "card": card}
+
+
+def zoo_decode(torch, np, cfg, params, tally: dict, card: str
+               ) -> tuple[dict, int]:
+    """18b: 4 lanes, a cache of 1024 slots that has seen 992 tokens with
+    every floating leaf filled from a seeded generator, then 32 greedy
+    steps, each token read back as the launcher does; counters zeroed
+    just before and read just after.  The decode attention must launch
+    steps × (self-attention + cross layers) times, every ring advance one
+    slot a step, every SSM state move."""
+    from repro_torch.data import synthetic_request_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    seen = ZOO_CAPACITY - ZOO_STEPS
+    cache = lm.init_cache(cfg, ZOO_LANES, ZOO_CAPACITY, prefill_len=seen,
+                          device=DEV)
+    fill_cache(torch, cache, 1)
+    states = [t.clone() for t in named_leaves(cache, "state")]
+    serve_step = lm.make_serve_step(cfg)
+    toks = torch.from_numpy(next(synthetic_request_stream(
+        cfg, batch=ZOO_LANES, prompt_len=1, seed=0))).to(DEV)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    with swa_launches_by_shape(tally):
+        for _ in range(ZOO_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = serve_step(params, toks, cache)
+            toks = torch.argmax(logits, dim=-1)
+            end.record()
+            toks[:, 0].cpu()                # the launcher reads each token
+            events.append((start, end))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["swa_attention_decode"]
+    want = ZOO_STEPS * zoo_attention_layers(cfg)
+    check(launches == want, f"18b {cfg.name}: swa_attention_decode launched "
+                            f"{launches} times, expected {want}")
+    check(bool(torch.isfinite(logits).all()),
+          f"18b {cfg.name}: decode logits not finite")
+    for t in named_leaves(cache, "length"):
+        check(bool((t == seen + ZOO_STEPS).all()),
+              f"18b {cfg.name}: a ring's length did not advance")
+    for t in named_leaves(cache, "index"):
+        check(bool((t == (seen + ZOO_STEPS) % ZOO_CAPACITY).all()),
+              f"18b {cfg.name}: a ring's write slot did not advance")
+    for a, b in zip(states, named_leaves(cache, "state")):
+        check(bool((a != b).any()) and bool(torch.isfinite(b).all()),
+              f"18b {cfg.name}: an SSM state did not move or is not finite")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    return {"lanes": ZOO_LANES, "capacity": ZOO_CAPACITY, "seen": seen,
+            "steps": ZOO_STEPS, "wall_s": wall,
+            "tokens_per_s": ZOO_STEPS * ZOO_LANES / wall,
+            "step_ms": percentiles(np, step_ms),
+            "swa_launches": launches,
+            "ssm_states": len(states), "card": card}, launches
+
+
+def zoo_batcher(torch, cfg, params, card: str) -> dict:
+    """18c: ``ContinuousBatcher`` with 4 lanes serving 8 requests (lane
+    resets: the SSM's windows and state, MLA's latent ring); each
+    request must complete once with all its tokens, and the decode
+    attention launch once a step for each attention layer."""
+    from repro_torch.core.serving import ContinuousBatcher
+    from repro_torch.data import synthetic_request_stream
+    from repro_torch.kernels import ops
+
+    bat = ContinuousBatcher(cfg, params, lanes=ZOO_LANES,
+                            capacity=ZOO_REQ_PROMPT + ZOO_REQ_NEW,
+                            device=DEV)
+    prompts = next(synthetic_request_stream(
+        cfg, batch=ZOO_REQUESTS, prompt_len=ZOO_REQ_PROMPT, seed=0))
+    rids = [bat.submit(p, max_new=ZOO_REQ_NEW) for p in prompts]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = bat.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [r.rid for r in done]
+    check(len(got) == len(set(got)) and sorted(got) == sorted(rids),
+          f"18c {cfg.name}: {len(got)} completions for {len(rids)} requests")
+    check(all(len(r.generated) == ZOO_REQ_NEW for r in done),
+          f"18c {cfg.name}: a request did not get all its tokens")
+    launches = ops.launch_counts()["swa_attention_decode"]
+    check(launches == bat.steps * zoo_attention_layers(cfg),
+          f"18c {cfg.name}: {launches} swa launches in {bat.steps} steps")
+    return {"lanes": ZOO_LANES, "requests": len(done), "steps": bat.steps,
+            "wall_s": wall, "generated_tokens_per_s":
+            ZOO_REQUESTS * ZOO_REQ_NEW / wall, "swa_launches": launches,
+            "card": card}
+
+
+def zoo_reference(torch, arch: str, card: str) -> dict:
+    """18d: the family at full width but 2 layers (the VLM one
+    super-block), fp32 with TF32 off, from one set of parameters on the
+    card and a CPU copy: the forward's logits over 2 prompts of 8 tokens,
+    then 8 teacher-forced decode steps over a 16-slot ring that has seen
+    12 tokens (every cache leaf filled from a seeded generator), each
+    within 1e-3 of the largest logit of the CPU's."""
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import lm
+
+    cfg = zoo_config(arch, 5 if arch == "llama-3.2-vision-11b" else 2,
+                     "float32")
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
+    if cfg.family == "vlm":
+        params["blocks"]["gate"] += 0.5     # tanh(0) hides the cross branch
+    params_cpu = tree_to(params, "cpu")
+    batch_cpu = next(synthetic_batches(cfg, batch=2, seq=ZOO_REF_STEPS,
+                                       seed=2, device="cpu"))
+    batch = tree_to(batch_cpu, DEV)
+
+    def rel(card_logits, cpu_logits, what):
+        r = max_err(card_logits.cpu(), cpu_logits) \
+            / float(cpu_logits.abs().max())
+        check(r <= 1e-3, f"18d {cfg.name}: {what} off by {r:.3g} of "
+                         "max|logit|")
+        return r
+    worst = rel(lm.forward(params, cfg, batch)[0],
+                lm.forward(params_cpu, cfg, batch_cpu)[0], "the forward")
+    forward_err = worst
+    cache = lm.init_cache(cfg, 2, 16, prefill_len=12, device=DEV)
+    fill_cache(torch, cache, 3)
+    cache_cpu = tree_to(cache, "cpu")
+    for t in range(ZOO_REF_STEPS):
+        tk = batch_cpu["tokens"][:, t: t + 1]
+        lg, cache = lm.decode_step(params, cfg, tk.to(DEV), cache)
+        lc, cache_cpu = lm.decode_step(params_cpu, cfg, tk, cache_cpu)
+        worst = max(worst, rel(lg, lc, f"decode step {t}"))
+    return {"arch": arch, "layers": cfg.num_layers,
+            "forward_max_rel_err": forward_err, "max_rel_err": worst,
+            "seconds": time.perf_counter() - t0, "card": card}
+
+
+def zoo_swa_rows(torch, np, card: str) -> list[dict]:
+    """18e: the decode attention at the zoo's new shapes (rows 8M, 8H, 8X,
+    8W), each checked and timed by ``swa_case``: self-attention over a
+    wrapped ring with the query at its head, cross-attention with every
+    slot valid at position 0 and the query at 0."""
+    report: list = []
+    for row, name, B, T, Hkv, G, dh, window, cross in ZOO_SWA:
+        args = swa_inputs(torch, np, B, T, Hkv, G, dh, T + dh,
+                          torch.bfloat16, at_head=True)
+        if cross:
+            q, k, v = args[:3]
+            args = (q, k, v,
+                    torch.zeros((B, T), dtype=torch.int32, device=DEV),
+                    torch.ones((B, T), dtype=torch.bool, device=DEV),
+                    torch.zeros((B,), dtype=torch.int32, device=DEV))
+        case = swa_case(torch, args, window)
+        add_entry(report, name, "src/repro_torch/csrc/swa_decode.cu",
+                  "src/repro/kernels/swa_attention.py:55", case["err"],
+                  case["shape"], case["ms"], case["plain_ms"],
+                  case["nbytes"], library_ms=case["library_ms"],
+                  library_max_abs_err=case["library_max_abs_err"],
+                  kept_slots=case["kept_slots"],
+                  bf16_steps_off=case["bf16_steps_off"],
+                  deterministic=True, device_ms=case["device_ms"],
+                  row=row, window=window, cross=cross, card=card)
+    return report
+
+
+def zoo_phase(torch, np, card: str) -> tuple[dict, dict, list]:
+    """18: the LM zoo's six new families at published widths in bf16
+    (depths in ``ZOO``): for each, seeded parameters on the card, the
+    prefill (18a) and the decode (18b), and the batcher for mamba2 and
+    deepseek (18c); then each family in fp32 on the card against the CPU
+    (18d) and the decode attention at the zoo's shapes (18e).  Returns
+    the phase's summary, the decode's launches by report row (the four
+    new rows' shapes counted apart, the rest under row 8) and the new
+    rows."""
+    from repro_torch.models import lm
+
+    out: dict = {}
+    tally: dict = {}
+    total = 0
+    for arch, depth in ZOO.items():
+        t0 = time.perf_counter()
+        cfg = zoo_config(arch, depth)
+        params = lm.init_params(
+            cfg, generator=torch.Generator(device=DEV).manual_seed(0),
+            device=DEV)
+        torch.cuda.synchronize()
+        res = {"layers": cfg.num_layers, "params": lm.param_count(params),
+               "init_s": time.perf_counter() - t0}
+        res["prefill"] = zoo_prefill(torch, cfg, params, card)
+        res["decode"], launches = zoo_decode(torch, np, cfg, params, tally,
+                                             card)
+        total += launches
+        if arch in ZOO_BATCHER:
+            res["batcher"] = zoo_batcher(torch, cfg, params, card)
+        del params
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        print(f"18 {arch}: " + json.dumps(res), flush=True)
+    check(sum(tally.values()) == total,
+          f"18: the shape tally holds {sum(tally.values())} of {total} "
+          "decode-attention launches")
+    counts = {name: tally.get((T, Hkv, G, dh), 0)
+              for _, name, _, T, Hkv, G, dh, _, _ in ZOO_SWA}
+    counts["swa_attention_decode"] = total - sum(counts.values())
+    refs = {}
+    for arch in ZOO:
+        refs[arch] = zoo_reference(torch, arch, card)
+        print(f"18d {arch}: " + json.dumps(refs[arch]), flush=True)
+        torch.cuda.empty_cache()
+    out["reference"] = refs
+    rows = zoo_swa_rows(torch, np, card)
+    for row in rows:
+        check(counts[row["name"]] > 0,
+              f"18: no decode launch at {row['name']}'s shape on the path")
+    return out, counts, rows
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -3671,15 +4079,21 @@ def main() -> int:
     t_all = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    print(f"build: {_build.build_all():.2f} s (nvcc, one per source, "
-          "in parallel)", flush=True)
-    t0 = time.perf_counter()
-    g = make_graph("reddit", scale=SCALE, seed=0)
-    part = bfs_partition(g, 4, seed=0)
-    shards = make_client_shards(g, part)
+    # the nvcc processes run while the host builds the graph
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build_all)
+        t0 = time.perf_counter()
+        g = make_graph("reddit", scale=SCALE, seed=0)
+        part = bfs_partition(g, 4, seed=0)
+        shards = make_client_shards(g, part)
+        graph_s = time.perf_counter() - t0
+        build_s = build.result()
+    print(f"build: {build_s:.2f} s (nvcc, one per source, in parallel, "
+          "beside the graph's build)", flush=True)
     print(f"graph: reddit scale {SCALE}: {g.num_vertices} vertices, "
           f"{g.num_edges} edges, 4 shards, built on the host in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{graph_s:.1f} s; both done {time.perf_counter() - t0:.1f} s "
+          "after the build started", flush=True)
 
     report = kernel_phase(torch, np, shards, g.num_vertices)
     reference_phase(torch, np)
@@ -3708,8 +4122,10 @@ def main() -> int:
     t0 = time.perf_counter()
     with timed(agg_mod, "csr_from_edges", glue), \
             timed(agg_mod, "transpose_csr", glue):
+        g_sh = make_graph("reddit", scale=SHARDED_SCALE, seed=0)
         sharded, sharded_counts, sharded_cases = sharded_train_phase(
-            torch, np, g, part)
+            torch, np, g_sh, bfs_partition(g_sh, 4, seed=0))
+        del g_sh
     check(not glue, f"the CSR glue ran {len(glue)} times on the sharded "
                     "training path")
     sharded["phase_s"] = time.perf_counter() - t0
@@ -3768,6 +4184,17 @@ def main() -> int:
     print("graph growth: " + json.dumps(growth), flush=True)
     print("graph growth under fedsvc in threads: " + json.dumps(growth_fed),
           flush=True)
+    t0 = time.perf_counter()
+    zoo, zoo_counts, rows = zoo_phase(torch, np, card)
+    report += rows
+    summary = {arch: {"prefill_tokens_per_s":
+                      zoo[arch]["prefill"]["prefill_tokens_per_s"],
+                      "decode_tokens_per_s":
+                      zoo[arch]["decode"]["tokens_per_s"],
+                      "card_vs_cpu": zoo["reference"][arch]["max_rel_err"]}
+               for arch in ZOO}
+    print(f"18: LM zoo in {time.perf_counter() - t0:.1f} s on {card}: "
+          + json.dumps(summary), flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -3779,12 +4206,13 @@ def main() -> int:
         row["launches_store"] = store_counts.get(name, 0)
         row["launches_serve_tcp"] = serve_tcp_counts.get(name, 0)
         row["launches_growth"] = growth_counts.get(name, 0)
+        row["launches_zoo"] = zoo_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
                            + row["launches_sharded"] + row["launches_tcp"]
                            + row["launches_store"]
                            + row["launches_serve_tcp"]
-                           + row["launches_growth"])
+                           + row["launches_growth"] + row["launches_zoo"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
@@ -3792,7 +4220,8 @@ def main() -> int:
           f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)} "
           f"tcp {json.dumps(tcp_counts)} store {json.dumps(store_counts)} "
           f"serve_tcp {json.dumps(serve_tcp_counts)} growth "
-          f"{json.dumps(growth_counts)}", flush=True)
+          f"{json.dumps(growth_counts)} zoo {json.dumps(zoo_counts)}",
+          flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

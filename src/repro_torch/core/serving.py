@@ -7,9 +7,10 @@ next queued request takes the lane.  The lane's cache is reset by its
 ring-buffer bookkeeping (validity, write index, length), so there is no
 idle bubble waiting for the longest request.
 
-The port resets lanes and writes cache slots **in place** (the JAX
-package builds a new cache tree each time).  Only attention caches are
-ported: an SSM cache key raises ``NotImplementedError``.  As in the JAX
+Works with every architecture family: attention caches reset by their
+ring-buffer bookkeeping, SSM caches by zeroing the lane's conv windows
+and state.  The port resets lanes and writes cache slots **in place**
+(the JAX package builds a new cache tree each time).  As in the JAX
 package, each step reads the batch's argmax back to the host once.
 """
 
@@ -25,7 +26,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
-_SSM_KEYS = ("state", "conv_x", "conv_BC")
+#: SSM cache leaves and the axis of the lane in each, counted from the
+#: end: state (..., B, H, P, N), conv windows (..., B, W - 1, C)
+_SSM_LANE_AXIS = {"state": 4, "conv_x": 3, "conv_BC": 3}
 
 
 @dataclasses.dataclass
@@ -42,15 +45,18 @@ class Request:
 
 
 def _reset_lane(cache, lane: int):
-    """Zero one lane's bookkeeping in a cache tree, in place; returns the
-    tree.  Leading layer-stack dims broadcast; the lane is the last axis
-    of ``index`` / ``length`` and the one before the slots of ``valid``."""
+    """Zero one lane's bookkeeping (and, for SSM caches, its conv windows
+    and state) in a cache tree, in place; returns the tree.  Leading
+    layer-stack dims broadcast; the lane is the last axis of ``index`` /
+    ``length``, the one before the slots of ``valid``, and axis -4 of
+    ``state`` and -3 of ``conv_x`` / ``conv_BC``."""
     if isinstance(cache, dict):
         for name, leaf in cache.items():
-            if name in _SSM_KEYS:
-                raise NotImplementedError(
-                    "SSM caches are not ported yet (ROADMAP Queue A item 4)")
-            if name in ("index", "length"):
+            if name in _SSM_LANE_AXIS:
+                idx = (Ellipsis, lane) \
+                    + (slice(None),) * (_SSM_LANE_AXIS[name] - 1)
+                leaf[idx] = 0
+            elif name in ("index", "length"):
                 leaf[..., lane] = 0
             elif name == "valid":
                 leaf[..., lane, :] = False

@@ -1,5 +1,5 @@
-"""Seeded synthetic request streams for the LM serving path."""
+"""Seeded synthetic batches and request streams for the LM zoo."""
 
-from .pipeline import synthetic_request_stream
+from .pipeline import synthetic_batches, synthetic_request_stream
 
-__all__ = ["synthetic_request_stream"]
+__all__ = ["synthetic_batches", "synthetic_request_stream"]

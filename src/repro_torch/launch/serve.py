@@ -1,4 +1,4 @@
-"""Serving launcher: batched decode of the zoo's dense family.
+"""Serving launcher: batched decode of any zoo architecture.
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device``: the prompt is consumed by teacher-forced decode steps (one
@@ -8,6 +8,8 @@ greedily.  The parameters are a seeded random init on the device.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --full-config                          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --full-config                          # any family: see list_archs()
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt 32 --generate 32    # reduced config on the CPU
 """

@@ -1,9 +1,13 @@
-"""Transformer building blocks of the LM zoo: the decode path.
+"""Transformer building blocks shared by the LM zoo.
 
-Counterpart of ``repro/models/layers.py`` for what one-token decode runs:
-initialisers, RMSNorm, rotary embeddings, the MLPs, GQA attention
-against a ring-buffer KV cache, and the cache itself.  Prefill
-(``blocked_attention``), MLA and cross-attention wait for later slices.
+Counterpart of ``repro/models/layers.py``: initialisers, RMSNorm and
+the Mamba2 gated norm, rotary embeddings, the MLPs, full-sequence GQA
+attention (``blocked_attention``, the online-softmax recurrence over KV
+blocks, in plain PyTorch as the JAX package leaves it to XLA), one-token
+GQA attention against a ring-buffer KV cache through the
+``swa_attention_decode`` kernel, cross-attention to a static memory,
+DeepSeek's multi-head latent attention (MLA) for prefill and decode,
+and the caches.
 
 Conventions as in the JAX package: activations (B, S, D); attention
 internals (B, S, H, dh); KV caches (B, T, Hkv, dh) with int32 absolute
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 
 # -- initialisers -------------------------------------------------------------
 
@@ -34,7 +39,10 @@ def dense_init(shape, dtype: torch.dtype, *, generator: torch.Generator,
     """Normal(0, 1) · scale in fp32, cast to ``dtype``; ``scale`` defaults
     to 1/sqrt(fan_in) with JAX's fan-in rule (the first dim of a matrix,
     the product of all but the last dim of a higher-rank tensor).  Drawn
-    from ``generator`` on its own device, then moved to ``device``."""
+    from ``generator`` on its own device, then moved to ``device``; on
+    the ``meta`` device nothing is drawn."""
+    if torch.device(device).type == "meta":     # shapes and dtypes only
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) <= 2 else int(np.prod(shape[:-1]))
     s = scale if scale is not None else float(1.0 / np.sqrt(fan_in))
     x = torch.randn(tuple(shape), generator=generator,
@@ -60,6 +68,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * weight.to(torch.float32)).to(x.dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2 output norm: RMSNorm(x * silu(z)), the gate in fp32 cast
+    to x's dtype before the product."""
+    return rms_norm(x * F.silu(z.to(torch.float32)).to(x.dtype), weight,
+                    eps)
 
 
 # -- rotary embeddings --------------------------------------------------------
@@ -123,6 +139,77 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.activation)
     return add_bias(h @ p["w_out"], p.get("b_out"))
+
+
+# -- blocked attention core ---------------------------------------------------
+
+#: padding positions past Skv: above every real position, so a causal
+#: mask drops them whatever ``kv_valid`` says
+_PAD_POSITION = np.iinfo(np.int32).max // 2
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      causal: bool, window: int | None, kv_block: int = 512,
+                      kv_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Online-softmax attention, blocked over KV, op for op the JAX
+    package's recurrence: KV padded to whole blocks of ``kv_block`` (the
+    padding at position ``int32 max // 2`` and invalid), ``q · scale``
+    in fp32, masked scores set to the finite ``NEG_INF``, fp32 running
+    max, sum and accumulator, and ``acc / max(l, 1e-30)`` cast to q's
+    dtype.  No (Sq × Skv) score tensor forms beyond one block.
+
+    q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh) with H = G·Hkv.
+    positions: (Sq,) and (Skv,) absolute token indices.  ``kv_valid``:
+    optional (B, Skv) bool mask.  Returns (B, Sq, H, dh)."""
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    dev = q.device
+    # (B, Hkv, Sq·G, dh): each kv head's queries as the rows of one product
+    qg = (q.reshape(B, Sq, Hkv, G, dh).to(torch.float32)
+          * float(1.0 / np.sqrt(dh))).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Hkv, Sq * G, dh)
+    nb = -(-Skv // kv_block)
+    pad = nb * kv_block - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=_PAD_POSITION)
+        if kv_valid is None:
+            kv_valid = (torch.arange(nb * kv_block, device=dev) < Skv) \
+                .expand(B, nb * kv_block)
+        else:
+            kv_valid = F.pad(kv_valid, (0, pad), value=False)
+    elif kv_valid is None:
+        kv_valid = torch.ones((B, Skv), dtype=torch.bool, device=dev)
+    qp = q_positions.reshape(1, 1, Sq, 1, 1)
+
+    m = torch.full((B, Hkv, Sq, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, Sq, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, Sq, G, dh), dtype=torch.float32, device=dev)
+    for b in range(nb):
+        blk = slice(b * kv_block, (b + 1) * kv_block)
+        kb = k[:, blk].to(torch.float32).permute(0, 2, 3, 1)   # (B,Hkv,dh,t)
+        vb = v[:, blk].to(torch.float32).permute(0, 2, 1, 3)   # (B,Hkv,t,dh)
+        pb = kv_positions[blk].reshape(1, 1, 1, 1, kv_block)
+        s = (qg @ kb).reshape(B, Hkv, Sq, G, kv_block)
+        mask = kv_valid[:, blk].reshape(B, 1, 1, 1, kv_block)
+        if causal:
+            mask = mask & (qp >= pb)
+        if window is not None:
+            mask = mask & (qp - window < pb)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = (p.reshape(B, Hkv, Sq * G, kv_block) @ vb) \
+            .reshape(B, Hkv, Sq, G, dh)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, dh).to(q.dtype)
 
 
 # -- attention ----------------------------------------------------------------
@@ -190,12 +277,33 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = decode_attention(q, cache["k"], cache["v"], q_position=pos,
                            kv_positions=cache["pos"], window=window,
                            kv_valid=cache["valid"])
-    H, dh = out.shape[2], out.shape[3]
-    out = out.reshape(B, 1, H * dh) @ p["wo"].reshape(H * dh, -1)
-    out = add_bias(out, p.get("bo"))
+    out = add_bias(_unproject(out, p["wo"]), p.get("bo"))
     slot.add_(1).remainder_(T)
     pos.add_(1)
     return out, cache
+
+
+def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, window: int | None = None,
+              kv_block: int = 512
+              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence (train / prefill) causal GQA self-attention.
+    Returns (out, (k, v)), as the JAX package does."""
+    q = add_bias(_project(x, p["wq"]), p.get("bq"))
+    k = add_bias(_project(x, p["wk"]), p.get("bk"))
+    v = add_bias(_project(x, p["wv"]), p.get("bv"))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = blocked_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            window=window, kv_block=kv_block)
+    return add_bias(_unproject(out, p["wo"]), p.get("bo")), (k, v)
+
+
+def _unproject(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", x, w) as one matrix product."""
+    h, k, D = w.shape
+    return x.reshape(*x.shape[:-2], h * k) @ w.reshape(h * k, D)
 
 
 def _cache_bookkeeping(batch: int, capacity: int, length: int, *,
@@ -227,6 +335,160 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
                          device=device),
         "v": torch.zeros((batch, capacity, Hkv, dh), dtype=cfg.dtype,
                          device=device),
+    }
+    out.update(_cache_bookkeeping(batch, capacity, prefill_len or 0,
+                                  device=device))
+    return out
+
+
+# -- cross attention (VLM / enc-dec) ------------------------------------------
+
+def init_cross_attention(cfg: ModelConfig, *, generator: torch.Generator,
+                         device) -> dict:
+    return init_attention(cfg, generator=generator, device=device)
+
+
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor, *, kv_block: int = 512
+                    ) -> torch.Tensor:
+    """Attend from x (B, Sq, D) to a static memory (B, Sm, D),
+    non-causal, every position 0."""
+    Sq, Sm = x.shape[1], memory.shape[1]
+    q = add_bias(_project(x, p["wq"]), p.get("bq"))
+    k = add_bias(_project(memory, p["wk"]), p.get("bk"))
+    v = add_bias(_project(memory, p["wv"]), p.get("bv"))
+    pos = torch.zeros(max(Sq, Sm), dtype=torch.int32, device=x.device)
+    out = blocked_attention(q, k, v, q_positions=pos[:Sq],
+                            kv_positions=pos[:Sm], causal=False,
+                            window=None, kv_block=kv_block)
+    return add_bias(_unproject(out, p["wo"]), p.get("bo"))
+
+
+# -- MLA (DeepSeek multi-head latent attention) -------------------------------
+
+def mla_shapes(cfg: ModelConfig) -> dict:
+    """Leaf shapes of :func:`init_mla`'s tree (no biases)."""
+    D, H = cfg.d_model, cfg.num_heads
+    r, nope, vd = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    rp = cfg.qk_rope_head_dim
+    return {"wq": (D, H, nope + rp), "w_dkv": (D, r), "w_kr": (D, rp),
+            "w_uk": (r, H, nope), "w_uv": (r, H, vd), "wo": (H, vd, D)}
+
+
+def init_mla(cfg: ModelConfig, *, generator: torch.Generator,
+             device) -> dict:
+    return _init_from_shapes(mla_shapes(cfg), cfg, generator=generator,
+                             device=device)
+
+
+def _mla_kv(cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tensor,
+            p: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-head K and V rebuilt from the latents: the shared rope head
+    appended to each head's K, V padded to the same width.  c_kv (B, T,
+    r); k_rope (B, T, rp) roped."""
+    nope, rp, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                    cfg.v_head_dim)
+    k_nope = _project(c_kv, p["w_uk"])                     # (B, T, H, nope)
+    v = _project(c_kv, p["w_uv"])                          # (B, T, H, vd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], rp)], dim=-1)
+    if vd < nope + rp:
+        v = F.pad(v, (0, nope + rp - vd))
+    return k, v
+
+
+def _mla_query(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Per-head queries, the rope part roped: (B, S, H, nope + rp)."""
+    nope = cfg.qk_nope_head_dim
+    q = _project(x, p["wq"])
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    return torch.cat([q[..., :nope], q_rope], dim=-1)
+
+
+def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                  positions: torch.Tensor, kv_block: int = 512
+                  ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal MLA.  Returns (out, (c_kv, k_rope))."""
+    q = _mla_query(p, cfg, x, positions)
+    c_kv = x @ p["w_dkv"]                                   # (B, S, r)
+    k_rope = apply_rope(x @ p["w_kr"], positions, cfg.rope_theta,
+                        head_axis=False)                    # (B, S, rp)
+    k, v = _mla_kv(cfg, c_kv, k_rope, p)
+    out = blocked_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True, window=None,
+                            kv_block=kv_block)[..., :cfg.v_head_dim]
+    return _unproject(out, p["wo"]), (c_kv, k_rope)
+
+
+def _per_head(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (B, H, k) times w (H, k, r), head by head: (B, H, r)."""
+    return (a.transpose(0, 1) @ w).transpose(0, 1)
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
+               absorb: bool = False, window: int | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token MLA decode against the latent cache {c_kv, k_rope,
+    pos, valid, index, length}, updated in place as
+    :func:`attention_decode` updates its cache.
+
+    ``absorb=False`` (what ``decode_step`` runs): per-head K/V rebuilt
+    from ``c_kv`` each step and attended through the
+    ``swa_attention_decode`` kernel (G = 1, dh = nope + rp).
+    ``absorb=True``: ``w_uk`` folded into the query and ``w_uv`` into the
+    output, attention in the latent space, in plain PyTorch as in the
+    JAX package (scores in x's dtype, divided, then cast to fp32)."""
+    B = x.shape[0]
+    nope, rp, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                    cfg.v_head_dim)
+    pos = cache["length"]
+    q = _mla_query(p, cfg, x, pos[:, None])
+    c_kv_t = x @ p["w_dkv"]
+    k_rope_t = apply_rope(x @ p["w_kr"], pos[:, None], cfg.rope_theta,
+                          head_axis=False)
+    T = cache["c_kv"].shape[1]
+    slot = cache["index"]
+    bidx = torch.arange(B, device=x.device)
+    cache["c_kv"][bidx, slot] = c_kv_t[:, 0]
+    cache["k_rope"][bidx, slot] = k_rope_t[:, 0]
+    cache["pos"][bidx, slot] = pos
+    cache["valid"][bidx, slot] = True
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+
+    if absorb:
+        mask = cache["valid"] & (cache["pos"] <= pos[:, None])
+        if window is not None:
+            mask = mask & (cache["pos"] > pos[:, None] - window)
+        q_nope, q_rope = q[:, 0, :, :nope], q[:, 0, :, nope:]   # (B, H, ·)
+        q_lat = _per_head(q_nope, p["w_uk"].permute(1, 2, 0))  # (B, H, r)
+        s = q_lat @ c_cache.to(q_lat.dtype).transpose(1, 2) \
+            + q_rope @ r_cache.to(q_rope.dtype).transpose(1, 2)  # (B, H, T)
+        s = (s / float(np.sqrt(nope + rp))).to(torch.float32)
+        s = torch.where(mask[:, None, :], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        ctx = pr.to(c_cache.dtype) @ c_cache                   # (B, H, r)
+        out = _per_head(ctx, p["w_uv"].permute(1, 0, 2))[:, None]
+    else:
+        k, v = _mla_kv(cfg, c_cache, r_cache, p)
+        out = decode_attention(q, k, v, q_position=pos,
+                               kv_positions=cache["pos"], window=window,
+                               kv_valid=cache["valid"])[..., :vd]
+    out = _unproject(out, p["wo"])
+    slot.add_(1).remainder_(T)
+    pos.add_(1)
+    return out, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int,
+                   prefill_len: int | None = None, *,
+                   device="cuda") -> dict:
+    """The latent cache of :func:`mla_decode`: zeros in every slot."""
+    out = {
+        "c_kv": torch.zeros((batch, capacity, cfg.kv_lora_rank),
+                            dtype=cfg.dtype, device=device),
+        "k_rope": torch.zeros((batch, capacity, cfg.qk_rope_head_dim),
+                              dtype=cfg.dtype, device=device),
     }
     out.update(_cache_bookkeeping(batch, capacity, prefill_len or 0,
                                   device=device))

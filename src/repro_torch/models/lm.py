@@ -1,23 +1,33 @@
-"""Language-model zoo: parameters, decode caches and the decode step.
+"""Language-model zoo: parameters, the forward (prefill), decode caches and
+the decode step, for all six architecture families.
 
-Counterpart of ``repro/models/lm.py`` for the serving half of the dense
-family (no MLA, no MoE)::
+Counterpart of ``repro/models/lm.py``::
 
     params            = init_params(cfg, generator=g, device="cuda")
     params            = from_jax_params(jax_tree_as_numpy, cfg, device=...)
+    logits, aux       = forward(params, cfg, batch)
     cache             = init_cache(cfg, batch, capacity, prefill_len=...)
     logits, cache     = decode_step(params, cfg, tokens, cache)
 
-Block parameters are stacked along a leading layer axis, as JAX's
-``_stacked`` leaves them (``blocks["attn"]["wq"]`` is (L, D, H, dh)), so a
-JAX parameter tree loads leaf for leaf; JAX's ``lax.scan`` over the
-blocks is a Python loop over the layer index here.  The cache is stacked
-the same way and updated in place (see :mod:`repro_torch.models.layers`).
-A ``sliding_window`` config turns the ring buffer into the long-context
-variant, whose attention is the ``swa_attention_decode`` kernel.
+Families: dense and MoE (GQA or DeepSeek's MLA attention; MoE FFNs after
+``first_dense_layers`` dense ones, kept as the unstacked ``head_blocks``
+list), SSM (Mamba2 SSD), hybrid (Hymba: attention and SSD over the same
+input, mean-fused), VLM (super-blocks of self-attention layers, a gated
+cross-attention to the projected vision tokens and a tail layer) and
+audio (Whisper's encoder and a decoder with cross-attention, lists of
+layers).
 
-Every other family (MoE, MLA, SSM, hybrid, VLM, audio) raises
-``NotImplementedError``: ROADMAP Queue A item 4 lists what is left.
+Homogeneous stacks are stacked along a leading layer axis, as JAX's
+``_stacked`` leaves them (``blocks["attn"]["wq"]`` is (L, D, H, dh)), so
+a JAX parameter tree loads leaf for leaf; JAX's ``lax.scan`` over a
+stack is a Python loop over the layer index here.  The forward leaves
+out JAX's sharding hooks (``constrain``, ``constrain_block_params``) and
+``jax.checkpoint`` remat: they belong to training and the pod tooling.
+Caches are stacked the same way and updated in place (see
+:mod:`repro_torch.models.layers`).  A ``sliding_window`` config turns
+the ring buffers into the long-context variant.  Every decode attention
+over a cache, cross-attention included, is the ``swa_attention_decode``
+kernel; the SSM's decode is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,49 +39,126 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import (attention_decode, attention_shapes, dense_init,
-                     init_attention, init_kv_cache, init_mlp, mlp, mlp_shapes,
-                     rms_norm)
+from . import moe as moe_lib
+from . import ssm as ssm_lib
+from .layers import (_project, _unproject, add_bias, apply_rope, attention,
+                     attention_decode, blocked_attention, cross_attention,
+                     decode_attention, dense_init, init_attention,
+                     init_cross_attention, init_kv_cache, init_mla,
+                     init_mla_cache, init_mlp, mla_attention, mla_decode,
+                     mlp, rms_norm)
 
 Params = Any
 
+_DENSE_KEYS = ("ln1", "ln2", "attn", "mlp")
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts or cfg.kv_lora_rank:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family "
-            f"{'with MLA ' if cfg.kv_lora_rank else ''}is not ported to "
-            "PyTorch yet (ROADMAP Queue A item 4); the port has the dense "
-            "family's decode path only")
+
+# ---------------------------------------------------------------------------
+# per-family layers
+# ---------------------------------------------------------------------------
+
+def _ones(cfg: ModelConfig, device) -> torch.Tensor:
+    return torch.ones(cfg.d_model, dtype=cfg.dtype, device=device)
+
+
+def _init_dense_layer(cfg: ModelConfig, gen: torch.Generator, device, *,
+                      use_moe: bool) -> dict:
+    p = {"ln1": _ones(cfg, device), "ln2": _ones(cfg, device)}
+    p["attn"] = init_mla(cfg, generator=gen, device=device) \
+        if cfg.kv_lora_rank \
+        else init_attention(cfg, generator=gen, device=device)
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(cfg, generator=gen, device=device)
+    else:
+        p["mlp"] = init_mlp(cfg, cfg.d_ff, generator=gen, device=device)
+    return p
+
+
+def _dense_layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                     positions: torch.Tensor, window: int | None):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        a, _ = mla_attention(p["attn"], cfg, h, positions=positions)
+    else:
+        a, _ = attention(p["attn"], cfg, h, positions=positions,
+                         window=window)
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        f, aux = moe_lib.moe_ffn(p["moe"], cfg, h)
+    else:
+        f, aux = mlp(p["mlp"], cfg, h), None
+    return x + f, aux
+
+
+def _dense_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        cache: dict, *, window: int | None
+                        ) -> tuple[torch.Tensor, dict]:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        a, cache = mla_decode(p["attn"], cfg, h, cache, window=window)
+    else:
+        a, cache = attention_decode(p["attn"], cfg, h, cache, window=window)
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        f, _ = moe_lib.moe_ffn(p["moe"], cfg, h)
+    else:
+        f = mlp(p["mlp"], cfg, h)
+    return x + f, cache
+
+
+def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    return {"ln": _ones(cfg, device),
+            "ssm": ssm_lib.init_ssm(cfg, generator=gen, device=device)}
+
+
+def _ssm_layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, _ = ssm_lib.ssm_forward(p["ssm"], cfg, h)
+    return x + y
+
+
+def _ssm_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      cache: dict):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, cache = ssm_lib.ssm_decode(p["ssm"], cfg, h, cache)
+    return x + y, cache
+
+
+def _init_hybrid_layer(cfg: ModelConfig, gen: torch.Generator,
+                       device) -> dict:
+    return {"ln1": _ones(cfg, device), "ln2": _ones(cfg, device),
+            "attn": init_attention(cfg, generator=gen, device=device),
+            "ssm": ssm_lib.init_ssm(cfg, generator=gen, device=device),
+            "mlp": init_mlp(cfg, cfg.d_ff, generator=gen, device=device)}
+
+
+def _hybrid_layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, window: int | None):
+    """Hymba's parallel heads: attention ∥ SSD over the same normed
+    input, mean-fused. [arXiv:2411.13676]"""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, _ = attention(p["attn"], cfg, h, positions=positions, window=window)
+    s, _ = ssm_lib.ssm_forward(p["ssm"], cfg, h)
+    x = x + 0.5 * (a + s)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(p["mlp"], cfg, h)
+
+
+def _hybrid_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                         cache: dict, *, window: int | None):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, _ = attention_decode(p["attn"], cfg, h, cache["attn"], window=window)
+    s, _ = ssm_lib.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
+    x = x + 0.5 * (a + s)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(p["mlp"], cfg, h), cache
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
-
-def _layer_shapes(cfg: ModelConfig) -> dict:
-    """Leaf shapes of one dense block, in the JAX package's layout and
-    key names (bias shapes whether or not the config has biases)."""
-    D = cfg.d_model
-    return {"ln1": (D,), "ln2": (D,), "attn": attention_shapes(cfg),
-            "mlp": mlp_shapes(cfg, cfg.d_ff)}
-
-
-def _top_shapes(cfg: ModelConfig) -> dict:
-    out = {"embed": (cfg.vocab_size, cfg.d_model),
-           "final_norm": (cfg.d_model,)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (cfg.d_model, cfg.vocab_size)
-    return out
-
-
-def _init_dense_layer(cfg: ModelConfig, gen: torch.Generator,
-                      device) -> dict:
-    return {"ln1": torch.ones(cfg.d_model, dtype=cfg.dtype, device=device),
-            "ln2": torch.ones(cfg.d_model, dtype=cfg.dtype, device=device),
-            "attn": init_attention(cfg, generator=gen, device=device),
-            "mlp": init_mlp(cfg, cfg.d_ff, generator=gen, device=device)}
-
 
 def _stack(trees: list[dict]) -> dict:
     """Leafwise stack of per-layer trees along a new leading axis (JAX's
@@ -85,26 +172,79 @@ def _stack(trees: list[dict]) -> dict:
     return out
 
 
+def _layer_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """Dense / MoE family: (unstacked head layers, stacked layers)."""
+    n_head = cfg.first_dense_layers if cfg.num_experts else 0
+    return n_head, cfg.num_layers - n_head
+
+
+def _vlm_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """VLM: (super-blocks, self-attention layers in each)."""
+    return cfg.num_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
 def init_params(cfg: ModelConfig, *,
                 generator: torch.Generator | None = None,
                 device: str = "cuda") -> Params:
     """Seeded random parameters in the JAX package's tree (``embed``
     normal·0.02, matrices normal/sqrt(fan_in), norms ones, biases zeros
-    or None), each block initialised per layer and stacked.  The numbers
-    come from ``generator`` (default: seed 0 on ``device``) and differ
-    from ``jax.random``'s; load JAX's own with :func:`from_jax_params`."""
-    _require_dense(cfg)
+    or None, the VLM's gates zero), each stacked layer initialised on
+    its own and stacked.  The numbers come from ``generator`` (default:
+    seed 0 on ``device``) and differ from ``jax.random``'s; load JAX's
+    own with :func:`from_jax_params`."""
     gen = generator if generator is not None \
         else torch.Generator(device=device).manual_seed(0)
     p = {"embed": dense_init((cfg.vocab_size, cfg.d_model), cfg.dtype,
                              generator=gen, device=device, scale=0.02),
-         "final_norm": torch.ones(cfg.d_model, dtype=cfg.dtype,
-                                  device=device)}
+         "final_norm": _ones(cfg, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), cfg.dtype,
                                   generator=gen, device=device)
-    p["blocks"] = _stack([_init_dense_layer(cfg, gen, device)
-                          for _ in range(cfg.num_layers)])
+
+    def dense(use_moe=False):
+        return _init_dense_layer(cfg, gen, device, use_moe=use_moe)
+
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        n_head, n_stack = _layer_counts(cfg)
+        if n_head:
+            p["head_blocks"] = [dense() for _ in range(n_head)]
+        p["blocks"] = _stack([dense(bool(cfg.num_experts))
+                              for _ in range(n_stack)])
+    elif fam == "ssm":
+        p["blocks"] = _stack([_init_ssm_layer(cfg, gen, device)
+                              for _ in range(cfg.num_layers)])
+    elif fam == "hybrid":
+        p["blocks"] = _stack([_init_hybrid_layer(cfg, gen, device)
+                              for _ in range(cfg.num_layers)])
+    elif fam == "vlm":
+        n_super, inner = _vlm_counts(cfg)
+
+        def init_super():
+            return {"self": _stack([dense() for _ in range(inner)]),
+                    "cross": init_cross_attention(cfg, generator=gen,
+                                                  device=device),
+                    "ln_cross": _ones(cfg, device),
+                    "gate": torch.zeros((), dtype=cfg.dtype, device=device),
+                    "tail": dense()}
+
+        p["blocks"] = _stack([init_super() for _ in range(n_super)])
+        p["vis_proj"] = dense_init((cfg.vision_dim, cfg.d_model), cfg.dtype,
+                                   generator=gen, device=device)
+    elif fam == "audio":
+        p["enc_blocks"] = [dense() for _ in range(cfg.encoder_layers)]
+        p["enc_norm"] = _ones(cfg, device)
+
+        def init_dec():
+            d = dense()
+            d["cross"] = init_cross_attention(cfg, generator=gen,
+                                              device=device)
+            d["ln_cross"] = _ones(cfg, device)
+            return d
+
+        p["dec_blocks"] = [init_dec() for _ in range(cfg.num_layers)]
+    else:
+        raise ValueError(fam)
     return p
 
 
@@ -116,65 +256,55 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _convert(tree, shapes, cfg: ModelConfig, device, path: str):
-    if isinstance(shapes, dict):
-        if not isinstance(tree, dict) or set(tree) != set(shapes):
+def _convert(tree, like, cfg: ModelConfig, device, path: str):
+    """``tree`` as tensors on ``device``, each leaf checked against the
+    shape and dtype of ``like``'s (a meta-device ``init_params``)."""
+    where = path or "params"
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
-            raise ValueError(f"{path or 'params'}: keys {got}, expected "
-                             f"{sorted(shapes)}")
-        return {k: _convert(tree[k], shapes[k], cfg, device, f"{path}/{k}")
-                for k in shapes}
-    if path.rsplit("/", 1)[-1].startswith("b") and not cfg.use_bias:
+            raise ValueError(f"{where}: keys {got}, expected {sorted(like)}")
+        return {k: _convert(tree[k], like[k], cfg, device, f"{path}/{k}")
+                for k in like}
+    if isinstance(like, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"{where}: {type(tree).__name__} where a list "
+                             f"of {len(like)} layers was expected")
+        return [_convert(t, s, cfg, device, f"{path}/{i}")
+                for i, (t, s) in enumerate(zip(tree, like))]
+    if like is None:
         if tree is not None:
-            raise ValueError(f"{path}: a bias where {cfg.name} has none")
+            raise ValueError(f"{where}: a bias where {cfg.name} has none")
         return None
     t = _to_tensor(tree, device)
-    if tuple(t.shape) != tuple(shapes) or t.dtype != cfg.dtype:
-        raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
-                         f"{tuple(shapes)} {cfg.dtype}")
+    if t.shape != like.shape or t.dtype != like.dtype:
+        raise ValueError(f"{where}: {tuple(t.shape)} {t.dtype}, expected "
+                         f"{tuple(like.shape)} {like.dtype}")
     return t
-
-
-def _stacked_shapes(shapes, n: int):
-    if isinstance(shapes, dict):
-        return {k: _stacked_shapes(v, n) for k, v in shapes.items()}
-    return (n,) + tuple(shapes)
 
 
 def from_jax_params(tree, cfg: ModelConfig, device: str = "cuda") -> Params:
     """The JAX package's ``lm.init_params`` tree, its leaves as numpy
     arrays (``jax.tree_util.tree_map(np.asarray, params)``, which keeps
-    the None biases), as the port's parameters on ``device``: the same
-    keys, layouts and dtypes, every shape checked against ``cfg``."""
-    _require_dense(cfg)
-    shapes = dict(_top_shapes(cfg))
-    shapes["blocks"] = _stacked_shapes(_layer_shapes(cfg), cfg.num_layers)
-    return _convert(tree, shapes, cfg, device, "")
+    the None biases and the layer lists), as the port's parameters on
+    ``device``: the keys, lists, shapes and dtypes of :func:`init_params`
+    (the SSM's ``A_log``, ``D`` and ``dt_bias`` fp32 in every config),
+    each leaf checked."""
+    like = init_params(cfg, generator=torch.Generator(), device="meta")
+    return _convert(tree, like, cfg, device, "")
 
 
 def param_count(params: Params) -> int:
-    def count(t):
-        if isinstance(t, dict):
-            return sum(count(v) for v in t.values())
-        return 0 if t is None else t.numel()
-    return count(params)
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_count(v) for v in params)
+    return 0 if params is None else params.numel()
 
 
 # ---------------------------------------------------------------------------
-# decode
+# forward (prefill)
 # ---------------------------------------------------------------------------
-
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-               prefill_len: int = 0, device: str = "cuda") -> dict:
-    """Per-layer ring-buffer KV caches stacked along a leading layer axis
-    (``cache["blocks"]["k"]`` is (L, B, T, Hkv, dh)), zeros in every slot.
-    ``capacity`` should be min(seq_len, sliding_window or seq_len)."""
-    _require_dense(cfg)
-    one = init_kv_cache(cfg, batch, capacity, prefill_len, device=device)
-    L = cfg.num_layers
-    return {"blocks": {k: t.unsqueeze(0).expand(L, *t.shape).contiguous()
-                       for k, t in one.items()}}
-
 
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s view of a stacked tree (tensors are views, so
@@ -184,14 +314,185 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _dense_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                        cache: dict, *, window: int | None
-                        ) -> tuple[torch.Tensor, dict]:
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attention_decode(p["attn"], cfg, h, cache, window=window)
-    x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], cfg, h), cache
+def _layers(tree: dict) -> list[dict]:
+    """Every layer's view of a stacked tree."""
+    n = next(_leaves(tree)).shape[0]
+    return [_layer(tree, i) for i in range(n)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _encode(params: Params, cfg: ModelConfig,
+            frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, Te, D):
+    non-causal self-attention with rope at the frame positions."""
+    enc = frames
+    enc_pos = torch.arange(enc.shape[1], dtype=torch.int32,
+                           device=enc.device)
+    for lp in params["enc_blocks"]:
+        a = lp["attn"]
+        h = rms_norm(enc, lp["ln1"], cfg.norm_eps)
+        q = add_bias(_project(h, a["wq"]), a.get("bq"))
+        k = add_bias(_project(h, a["wk"]), a.get("bk"))
+        v = add_bias(_project(h, a["wv"]), a.get("bv"))
+        q = apply_rope(q, enc_pos, cfg.rope_theta)
+        k = apply_rope(k, enc_pos, cfg.rope_theta)
+        o = blocked_attention(q, k, v, q_positions=enc_pos,
+                              kv_positions=enc_pos, causal=False,
+                              window=None)
+        enc = enc + add_bias(_unproject(o, a["wo"]), a.get("bo"))
+        h = rms_norm(enc, lp["ln2"], cfg.norm_eps)
+        enc = enc + mlp(lp["mlp"], cfg, h)
+    return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: dict, *,
+            window: Optional[int] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (the prefill step).  batch: {"tokens":
+    (B, S) integer ids, and for the VLM "vision": (B, Tv, vision_dim),
+    for audio "frames": (B, Te, D)}, on the parameters' device.  Returns
+    (logits (B, S, V), the MoE layers' summed aux loss, fp32 0-dim)."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    window = window if window is not None else cfg.sliding_window
+    x = params["embed"][tokens]
+    dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    fam = cfg.family
+
+    if fam in ("dense", "moe"):
+        for lp in params.get("head_blocks", []) + _layers(params["blocks"]):
+            x, aux = _dense_layer_fwd(lp, cfg, x, positions=positions,
+                                      window=window)
+            if aux is not None:
+                aux_total = aux_total + aux
+    elif fam == "ssm":
+        for lp in _layers(params["blocks"]):
+            x = _ssm_layer_fwd(lp, cfg, x)
+    elif fam == "hybrid":
+        for lp in _layers(params["blocks"]):
+            x = _hybrid_layer_fwd(lp, cfg, x, positions=positions,
+                                  window=window)
+    elif fam == "vlm":
+        memory = batch["vision"] @ params["vis_proj"]
+        for lp in _layers(params["blocks"]):
+            for sp in _layers(lp["self"]):
+                x, _ = _dense_layer_fwd(sp, cfg, x, positions=positions,
+                                        window=window)
+            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + torch.tanh(lp["gate"]) * cross_attention(
+                lp["cross"], cfg, h, memory)
+            x, _ = _dense_layer_fwd(lp["tail"], cfg, x, positions=positions,
+                                    window=window)
+    elif fam == "audio":
+        enc = _encode(params, cfg, batch["frames"])
+        for lp in params["dec_blocks"]:
+            x, _ = _dense_layer_fwd({k: lp[k] for k in _DENSE_KEYS}, cfg, x,
+                                    positions=positions, window=window)
+            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + cross_attention(lp["cross"], cfg, h, enc)
+    else:
+        raise ValueError(fam)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head, aux_total
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _stack_cache(one: dict, n: int) -> dict:
+    """``n`` copies of a cache tree along a new leading axis, each its own
+    memory (the stack is written in place)."""
+    return {k: _stack_cache(t, n) if isinstance(t, dict)
+            else t.unsqueeze(0).expand(n, *t.shape).contiguous()
+            for k, t in one.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
+               prefill_len: int = 0, extras: dict | None = None,
+               device: str = "cuda") -> dict:
+    """Per-layer decode caches, stacked where the parameters are
+    (``cache["blocks"]["k"]`` is (L, B, T, Hkv, dh)), zeros in every slot.
+    ``capacity`` should be min(seq_len, sliding_window or seq_len).
+
+    ``extras`` is accepted and ignored, as the JAX package ignores it:
+    the VLM's and audio's cross K/V stay zeros until a caller writes
+    them."""
+    del extras
+    fam = cfg.family
+
+    def kv():
+        return init_kv_cache(cfg, batch, capacity, prefill_len,
+                             device=device)
+
+    def cross(T):
+        return torch.zeros((batch, T, cfg.num_kv_heads,
+                            cfg.resolved_head_dim), dtype=cfg.dtype,
+                           device=device)
+
+    if fam in ("dense", "moe"):
+        def mk():
+            return init_mla_cache(cfg, batch, capacity, prefill_len,
+                                  device=device) if cfg.kv_lora_rank \
+                else kv()
+        n_head, n_stack = _layer_counts(cfg)
+        cache = {"blocks": _stack_cache(mk(), n_stack)}
+        if n_head:
+            cache["head_blocks"] = [mk() for _ in range(n_head)]
+        return cache
+    if fam == "ssm":
+        return {"blocks": _stack_cache(
+            ssm_lib.init_ssm_cache(cfg, batch, device=device),
+            cfg.num_layers)}
+    if fam == "hybrid":
+        return {"blocks": _stack_cache(
+            {"attn": kv(),
+             "ssm": ssm_lib.init_ssm_cache(cfg, batch, device=device)},
+            cfg.num_layers)}
+    if fam == "vlm":
+        n_super, inner = _vlm_counts(cfg)
+        return {"blocks": _stack_cache(
+            {"self": _stack_cache(kv(), inner), "tail": kv(),
+             "cross_k": cross(cfg.vision_tokens),
+             "cross_v": cross(cfg.vision_tokens)}, n_super)}
+    if fam == "audio":
+        return {"dec_blocks": [
+            {"self": kv(), "cross_k": cross(cfg.encoder_seq),
+             "cross_v": cross(cfg.encoder_seq)}
+            for _ in range(cfg.num_layers)]}
+    raise ValueError(fam)
+
+
+def _cross_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor
+                  ) -> torch.Tensor:
+    """One-token cross-attention against precomputed memory K/V: the
+    decode attention with every slot valid at position 0 and the query
+    at 0, no window."""
+    B, T = k_cache.shape[:2]
+    q = add_bias(_project(x, p["wq"]), p.get("bq"))
+    out = decode_attention(
+        q, k_cache, v_cache,
+        q_position=torch.zeros((B,), dtype=torch.int32, device=x.device),
+        kv_positions=torch.zeros((B, T), dtype=torch.int32,
+                                 device=x.device),
+        window=None,
+        kv_valid=torch.ones((B, T), dtype=torch.bool, device=x.device))
+    return add_bias(_unproject(out, p["wo"]), p.get("bo"))
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -200,12 +501,45 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens: (B, 1) integer ids on the parameters'
     device.  Returns (logits (B, 1, V), cache), the cache updated in
     place."""
-    _require_dense(cfg)
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
-    for i in range(cfg.num_layers):
-        x, _ = _dense_layer_decode(_layer(params["blocks"], i), cfg, x,
-                                   _layer(cache["blocks"], i), window=window)
+    fam = cfg.family
+
+    if fam in ("dense", "moe"):
+        for lp, lc in zip(params.get("head_blocks", []),
+                          cache.get("head_blocks", [])):
+            x, _ = _dense_layer_decode(lp, cfg, x, lc, window=window)
+        for lp, lc in zip(_layers(params["blocks"]),
+                          _layers(cache["blocks"])):
+            x, _ = _dense_layer_decode(lp, cfg, x, lc, window=window)
+    elif fam == "ssm":
+        for lp, lc in zip(_layers(params["blocks"]),
+                          _layers(cache["blocks"])):
+            x, _ = _ssm_layer_decode(lp, cfg, x, lc)
+    elif fam == "hybrid":
+        for lp, lc in zip(_layers(params["blocks"]),
+                          _layers(cache["blocks"])):
+            x, _ = _hybrid_layer_decode(lp, cfg, x, lc, window=window)
+    elif fam == "vlm":
+        for lp, lc in zip(_layers(params["blocks"]),
+                          _layers(cache["blocks"])):
+            for sp, sc in zip(_layers(lp["self"]), _layers(lc["self"])):
+                x, _ = _dense_layer_decode(sp, cfg, x, sc, window=window)
+            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + torch.tanh(lp["gate"]) * _cross_decode(
+                lp["cross"], cfg, h, lc["cross_k"], lc["cross_v"])
+            x, _ = _dense_layer_decode(lp["tail"], cfg, x, lc["tail"],
+                                       window=window)
+    elif fam == "audio":
+        for lp, lc in zip(params["dec_blocks"], cache["dec_blocks"]):
+            x, _ = _dense_layer_decode({k: lp[k] for k in _DENSE_KEYS}, cfg,
+                                       x, lc["self"], window=window)
+            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + _cross_decode(lp["cross"], cfg, h, lc["cross_k"],
+                                  lc["cross_v"])
+    else:
+        raise ValueError(fam)
+
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, cache

@@ -529,7 +529,11 @@ def _swa_inputs(B, T, Hkv, G, dh, seed, dtype, device, at_head):
     (8, 8192, 5, 3, 64, 8192, True), (1, 8192, 5, 3, 64, 8192, True),
     (2, 5, 2, 3, 64, None, False), (3, 1000, 5, 3, 64, 300, False),
     (3, 1000, 5, 3, 20, None, False), (1, 200, 2, 12, 256, 150, False),
-    (2, 100, 2, 16, 32, 64, False)])
+    (2, 100, 2, 16, 32, 64, False),
+    # the LM zoo's decode shapes: deepseek's MLA (dh 128 + 64, G 1),
+    # hymba's self-attention (G 5), the VLM's and whisper's cross-decode
+    (4, 1024, 16, 1, 192, None, True), (4, 1024, 5, 5, 64, 8192, True),
+    (4, 1600, 8, 4, 128, None, False), (4, 1500, 6, 1, 64, None, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_decode_matches_plain(cuda, B, T, Hkv, G, dh, window, at_head,
                                   dtype):
@@ -567,6 +571,43 @@ def test_swa_decode_split_does_not_change_the_function(cuda, monkeypatch,
         want = ref.swa_attention_decode(q, k, v, pos, valid, qpos, window)
         assert torch.allclose(got, want, rtol=2e-5, atol=2e-5), \
             float((got - want).abs().max())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T,Hkv,G,dh", [(1600, 8, 4, 128), (1500, 6, 1, 64)])
+def test_swa_decode_as_cross_attention_matches_plain(cuda, T, Hkv, G, dh):
+    """The cross-decode's call: every slot valid at position 0, the query
+    at 0, no window (``lm._cross_decode``)."""
+    q, k, v, _, _, _ = _swa_inputs(4, T, Hkv, G, dh, T, torch.bfloat16,
+                                   cuda, False)
+    pos = torch.zeros((4, T), dtype=torch.int32, device=cuda)
+    valid = torch.ones((4, T), dtype=torch.bool, device=cuda)
+    qpos = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    got = ops.swa_attention_decode(q, k, v, pos, valid, qpos, window=None)
+    want = ref.swa_attention_decode(q, k, v, pos, valid, qpos, None)
+    assert torch.allclose(got.float(), want.float(), rtol=2.0 ** -7,
+                          atol=1e-5), float((got.float() - want.float())
+                                            .abs().max())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_ffn_on_the_card_is_deterministic(cuda, arch):
+    """Two runs of the MoE FFN give the same bytes (the dispatch is an
+    index copy, the combine adds a token's experts in a fixed order:
+    no atomics), at full width in bf16."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    p = moe.init_moe(cfg, generator=torch.Generator(device="cuda")
+                     .manual_seed(0), device="cuda")
+    x = torch.randn((2, 512, cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(cfg.dtype)
+    a, aux_a = moe.moe_ffn(p, cfg, x)
+    b, aux_b = moe.moe_ffn(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert bool(torch.isfinite(a.float()).all())
     torch.cuda.synchronize()
 
 

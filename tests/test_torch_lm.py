@@ -27,6 +27,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.configs.base import SHAPES as J_SHAPES
 from repro.core.serving import ContinuousBatcher as JBatcher
+from repro.core.serving import _reset_lane as JResetLane
 from repro.data.pipeline import _markov_tokens as j_markov_tokens
 from repro.data.pipeline import synthetic_request_stream as j_request_stream
 from repro.launch import steps as j_steps
@@ -44,8 +45,6 @@ from repro_torch.models import lm
 torch.set_num_threads(1)
 
 DENSE = ["smollm-360m", "nemotron-4-340b", "command-r-35b", "starcoder2-15b"]
-UNPORTED = ["phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b", "mamba2-1.3b",
-            "hymba-1.5b", "llama-3.2-vision-11b", "whisper-tiny"]
 TOL = 1e-5
 
 
@@ -253,15 +252,6 @@ def test_init_params_shapes_and_seed():
                - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_cache(cfg, 2, 8, device="cpu")
-
-
 # -- continuous batching ------------------------------------------------------
 
 def test_batcher_matches_jax():
@@ -303,6 +293,11 @@ def test_batcher_matches_jax():
 
 
 def test_reset_lane_is_in_place_and_refuses_ssm_caches():
+    """Every lane reset, held to JAX's ``_reset_lane`` on the same cache
+    contents: a dense cache's bookkeeping, and since SSM caches are
+    ported, the conv windows and state of an SSM cache (the lane at axis
+    -4 of ``state``, -3 of the windows, under the layer stack) and both
+    halves of a hybrid cache, all in place."""
     cache = lm.init_cache(get_reduced("smollm-360m"), 3, 8, prefill_len=5,
                           device="cpu")
     out = _reset_lane(cache, 1)
@@ -310,8 +305,28 @@ def test_reset_lane_is_in_place_and_refuses_ssm_caches():
     b = cache["blocks"]
     assert b["length"][:, 1].eq(0).all() and b["length"][:, 0].eq(5).all()
     assert not b["valid"][:, 1].any() and b["valid"][:, 0, :5].all()
-    with pytest.raises(NotImplementedError, match="SSM"):
-        _reset_lane({"blocks": {"state": torch.zeros(2, 3, 4)}}, 0)
+    rng = np.random.default_rng(9)
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cache = lm.init_cache(get_reduced(arch), 3, 8, prefill_len=5,
+                              device="cpu")
+        leaves = [t for t in jax.tree_util.tree_leaves(cache)
+                  if t.is_floating_point()]
+        for t in leaves:
+            t.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(t.shape)).astype(np.float32)))
+        ptrs = [t.data_ptr() for t in leaves]
+        want = JResetLane(jax.tree_util.tree_map(
+            lambda t: jnp.asarray(t.numpy()), cache), 2)
+        assert _reset_lane(cache, 2) is cache
+        for got, w in zip(jax.tree_util.tree_leaves(cache),
+                          jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        blocks = cache["blocks"] if arch == "mamba2-1.3b" \
+            else cache["blocks"]["ssm"]
+        assert not blocks["state"][:, 2].any()
+        assert blocks["state"][:, :2].abs().sum() > 0
+        assert not blocks["conv_x"][:, 2].any()
+        assert [t.data_ptr() for t in leaves] == ptrs
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):

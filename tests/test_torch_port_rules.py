@@ -9,12 +9,13 @@ import pathlib
 import pytest
 
 from repro_torch.core import embedding_server, federated, pruning, serving
+from repro_torch.data import pipeline
 from repro_torch.exchange import socket_transport, transport
 from repro_torch.fedsvc import coordinator, runtime, worker
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
 from repro_torch.launch import embed_server, gnn_serve
-from repro_torch.models import gnn, layers, lm
+from repro_torch.models import gnn, layers, lm, moe, ssm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -63,7 +64,8 @@ def test_scan_catches_a_jax_import(tmp_path):
     embed_server.serve, runtime.RunConfig.build_trainer,
     runtime.EvalHarness.__init__, runtime.make_coordinator_state,
     worker.FedWorker.__init__, coordinator.CoordinatorState.__init__,
-    gnn_serve.build_plane_from_cfg,
+    gnn_serve.build_plane_from_cfg, moe.init_moe, ssm.init_ssm,
+    ssm.init_ssm_cache, layers.init_mla_cache, pipeline.synthetic_batches,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
