@@ -261,6 +261,28 @@ Phases, each of which fails the run:
    hymba, G 5; 8X: the VLM's cross-decode, 1600 slots; 8W: whisper's,
    1500), checked and timed as in step 10, their launches from (b) by
    shape.
+19. LM training: (a) smollm-360m at published width and depth in bf16
+   with remat, train_4k's 4096-token sequences at a global batch of 4
+   (cut from 256) in ``default_microbatches`` = 4 slices,
+   ``make_optimizer``'s AdamW(3e-4), ``synthetic_batches(seed=0)``: one
+   warm-up step and 3 steps timed by CUDA events; tokens/s, MFU (model
+   FLOPs 6·N·T + 12·L·H·dh·S·T over 989 TFLOP/s), peak memory, and the
+   device's idle share and top five kernels over one profiled
+   microbatch; every loss finite and the first batch's loss lower after
+   the steps.  (b) deepseek-v2-lite cut to 3 layers and mamba2-1.3b to 4
+   at published widths in bf16: 3 AdamW steps of 2 × 1024 tokens,
+   finite losses, moved parameters.  (c) Every reduced config in fp32:
+   the loss and each gradient leaf of one step on the card within 1e-4
+   of the CPU's (of the leaf's largest |g|), and the same step twice on
+   the card, bit-equal or not (where not, the leaves and the ops that
+   ``use_deterministic_algorithms`` names).  (d) ``save_pytree`` of (a)'s
+   params and AdamW state, ``load_pytree`` on the card: bit-equal, paths
+   in JAX's naming, seconds and GB/s each way.  (e) ``FederatedLMTrainer``
+   on smollm-360m: 2 silos, 2 local steps of 2 × 1024 tokens, top-10 %
+   deltas with stale aggregation, 2 rounds: round 1 leaves the anchor
+   bit-unchanged, round 2 moves it, comm fraction 0.1 and
+   ``comm_bytes_per_round`` 10 % of the anchor's bytes.  The launch
+   counters are zeroed before the phase and must read zero after it.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -354,16 +376,17 @@ def time_ms(torch, fn, *, iters: int = 50, warmup: int = 3) -> float:
 
 def device_events(torch, run, sessions: int = 1) -> list:
     """The device-side events (kernels, copies) of ``run()`` under
-    torch.profiler.  The card's CUPTI tracing has come back empty in some
-    runs, so up to ``sessions`` sessions are tried before giving up
-    (an empty list: "not measured")."""
+    torch.profiler, tracing the device activity alone: host-op tracing
+    would stretch the window that an idle share divides by.  The card's
+    CUPTI tracing has come back empty in some runs, so up to
+    ``sessions`` sessions are tried before giving up (an empty list:
+    "not measured")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(sessions):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -4056,6 +4079,409 @@ def zoo_phase(torch, np, card: str) -> tuple[dict, dict, list]:
     return out, counts, rows
 
 
+# -- phase 19: LM training -----------------------------------------------------
+
+TRAIN_ARCH = "smollm-360m"    # 19a: published width and depth
+TRAIN_SHAPE = "train_4k"      # 4096 tokens a sequence
+TRAIN_BATCH = 4               # global batch (cut from train_4k's 256)
+TRAIN_TIMED_STEPS = 3         # after one warm-up step
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
+#: 19b: two more families at published width, cut in depth
+TRAIN_CUT = {"deepseek-v2-lite-16b": 3, "mamba2-1.3b": 4}
+TRAIN_CUT_SEQ = 1024
+TRAIN_CUT_BATCH = 2
+TRAIN_CUT_STEPS = 3
+TRAIN_REF_TOL = 1e-4          # 19c: a gradient leaf, of its largest |g|
+FED_SILOS = 2                 # 19e: smollm-360m, top-10 % stale deltas
+FED_LOCAL_STEPS = 2
+FED_SEQ = 1024
+FED_BATCH = 2
+FED_FRAC = 0.1
+FED_ROUNDS = 2
+
+
+def batch_loss(torch, cfg, params, batch) -> float:
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        return float(lm.loss_fn(params, cfg, batch)[1]["loss"])
+
+
+def train_smollm(torch, np, card: str):
+    """19a: smollm-360m at published width and depth in bf16 with remat,
+    train_4k's 4096-token sequences at a global batch of 4 in
+    ``default_microbatches`` = 4 slices, ``make_optimizer``'s AdamW, from
+    ``synthetic_batches(seed=0)``: one warm-up step, then
+    TRAIN_TIMED_STEPS steps timed by CUDA events; tokens/s, MFU, peak
+    memory, and the device's idle share and top kernels over one profiled
+    microbatch.  Every loss must be finite, and the first batch's loss
+    lower after the steps than before.  Returns the summary, the params
+    and the optimizer state (19d saves them)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch.steps import default_microbatches, make_optimizer
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = SHAPES[TRAIN_SHAPE]
+    check(cfg.remat and cfg.dtype == torch.bfloat16,
+          "19a: smollm-360m should train in bf16 with remat")
+    mb = default_microbatches(cfg, shape)
+    opt = make_optimizer(cfg)
+    check(mb == 4 and opt.name == "adamw(lr=0.0003)",
+          f"19a: {mb} microbatches, {opt.name}")
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    state = opt.init(tree_leaves(params))
+    gen = synthetic_batches(cfg, batch=TRAIN_BATCH, seq=shape.seq_len,
+                            seed=0, device=DEV)
+    batches = [next(gen) for _ in range(1 + TRAIN_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_before = batch_loss(torch, cfg, params, batches[0])
+    loss_eval_s = time.perf_counter() - t0
+    step = lm.make_train_step(cfg, opt, microbatches=mb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = [float(m["loss"])]
+    step_ms = []
+    for b in batches[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"19a: a loss is not finite: {losses}")
+    loss_after = batch_loss(torch, cfg, params, batches[0])
+    check(loss_after < loss_before,
+          f"19a: the first batch's loss went {loss_before} -> {loss_after}")
+
+    N = lm.param_count(params)
+    T = TRAIN_BATCH * shape.seq_len
+    L, H, dh, S = (cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim,
+                   shape.seq_len)
+    flops = 6 * N * T + 12 * L * H * dh * S * T
+    step_s = float(np.mean(step_ms)) / 1e3
+
+    micro = {k: v[: TRAIN_BATCH // mb] for k, v in batches[1].items()}
+    wall: list[float] = []
+
+    def run():
+        t1 = time.perf_counter()
+        lm.loss_and_grads(params, cfg, micro)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t1)
+    t0 = time.perf_counter()
+    evs = device_events(torch, run, sessions=2)
+    busy = busy_share(evs, wall[-1])
+    profile_s = time.perf_counter() - t0
+    res = {"arch": TRAIN_ARCH, "params": N, "layers": L, "seq": S,
+           "global_batch": TRAIN_BATCH, "microbatches": mb,
+           "optimizer": opt.name, "remat": cfg.remat, "init_s": init_s,
+           "loss_eval_s": loss_eval_s, "warmup_step_s": warm_s,
+           "step_ms": step_ms,
+           "tokens_per_s": T / step_s, "model_flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_BF16_FLOPS,
+           "mfu_formula": "(6*N*T + 12*L*H*dh*S*T) / step_s / 989e12, "
+                          "N params, T tokens a step, no remat recompute",
+           "peak_mem_gb": peak, "losses": losses,
+           "first_batch_loss": [loss_before, loss_after],
+           "profiled_microbatch_s": wall[-1], "profile_s": profile_s,
+           "device_idle_share": busy["device_idle_share"],
+           "top5_device_ms": dict(list(busy["top_device_ms"].items())[:5]),
+           "card": card}
+    return res, cfg, params, state
+
+
+def train_cut(torch, np, card: str) -> dict:
+    """19b: deepseek-v2-lite (MLA, the MoE dispatch and its aux loss in the
+    backward) and mamba2-1.3b (the SSD scan's backward) at published
+    width in bf16, cut in depth (``TRAIN_CUT``): TRAIN_CUT_STEPS AdamW
+    steps of TRAIN_CUT_BATCH × TRAIN_CUT_SEQ tokens; finite losses and
+    moved parameters."""
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch, depth in TRAIN_CUT.items():
+        t0 = time.perf_counter()
+        cfg = zoo_config(arch, depth)
+        params = lm.init_params(
+            cfg, generator=torch.Generator(device=DEV).manual_seed(0),
+            device=DEV)
+        opt = make_optimizer(cfg)
+        state = opt.init(tree_leaves(params))
+        step = lm.make_train_step(cfg, opt)
+        gen = synthetic_batches(cfg, batch=TRAIN_CUT_BATCH, seq=TRAIN_CUT_SEQ,
+                                seed=0, device=DEV)
+        batches = [next(gen) for _ in range(TRAIN_CUT_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        p, st, losses, aux = params, state, [], []
+        for b in batches:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+            aux.append(float(m["aux"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        check(all(np.isfinite(losses + aux)),
+              f"19b {arch}: a loss is not finite: {losses} {aux}")
+        check(any(not torch.equal(a, b) for a, b in zip(
+            tree_leaves(params), tree_leaves(p))),
+            f"19b {arch}: the parameters did not move")
+        if cfg.num_experts:
+            check(min(aux) > 0, f"19b {arch}: no MoE aux loss")
+        out[arch] = {"layers": depth, "params": lm.param_count(params),
+                     "steps": TRAIN_CUT_STEPS, "batch": TRAIN_CUT_BATCH,
+                     "seq": TRAIN_CUT_SEQ, "losses": losses, "aux": aux,
+                     "wall_s": wall, "tokens_per_s": TRAIN_CUT_STEPS
+                     * TRAIN_CUT_BATCH * TRAIN_CUT_SEQ / wall,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "seconds": time.perf_counter() - t0, "card": card}
+        del params, state, p, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def nondeterministic_ops(torch, run) -> list[str]:
+    """The ops that ``torch.use_deterministic_algorithms`` names while
+    ``run()`` runs (cuBLAS's workspace notice left out)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0][:80]
+                   for w in caught if "does not have a deterministic"
+                   in str(w.message)})
+
+
+def train_reference(torch, np, card: str) -> dict:
+    """19c: every arch's reduced config in fp32 (TF32 off): the loss and
+    each gradient leaf of one step on the card against the CPU from the
+    same parameters and batch, each leaf within TRAIN_REF_TOL of its
+    largest |g| on the CPU (floored at 1e-3 of the largest |g| of the
+    whole gradient, for leaves that are zero in exact arithmetic); then
+    the same step twice on the card, bit-equal or not, and where not the
+    leaves that differ and the ops ``use_deterministic_algorithms``
+    names."""
+    from repro_torch.configs import get_reduced, list_archs
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_paths
+
+    out = {}
+    for arch in list_archs():
+        cfg = get_reduced(arch)
+        S = cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else 8
+        params = lm.init_params(cfg, generator=torch.Generator()
+                                .manual_seed(0), device="cpu")
+        if cfg.family == "vlm":
+            params["blocks"]["gate"] += 0.5  # tanh(0) hides the cross branch
+        batch = next(synthetic_batches(cfg, batch=2, seq=S, seed=0,
+                                       device="cpu"))
+        batch["labels"][0, :3] = -1
+        p_dev, b_dev = tree_to(params, DEV), tree_to(batch, DEV)
+        loss_c, _, g_c = lm.loss_and_grads(params, cfg, batch)
+        loss_d, _, g_d = lm.loss_and_grads(p_dev, cfg, b_dev)
+        loss_d2, _, g_d2 = lm.loss_and_grads(p_dev, cfg, b_dev)
+        loss_err = abs(float(loss_d) - float(loss_c))
+        check(loss_err <= 1e-5 * max(1.0, abs(float(loss_c))),
+              f"19c {arch}: loss {float(loss_d)} on the card, "
+              f"{float(loss_c)} on the CPU")
+        floor = 1e-3 * max(float(g.abs().max()) for g in g_c)
+        worst = 0.0
+        for path, a, b in zip(tree_paths(params), g_d, g_c):
+            r = max_err(a.cpu(), b) / max(float(b.abs().max()), floor)
+            check(r <= TRAIN_REF_TOL, f"19c {arch}: gradient {path} off by "
+                                      f"{r:.3g} of its largest |g|")
+            worst = max(worst, r)
+        same = [torch.equal(a, b) for a, b in zip(g_d, g_d2)]
+        res = {"loss_abs_err": loss_err, "grad_max_rel_err": worst,
+               "bit_equal_run_to_run": bool(torch.equal(loss_d, loss_d2)
+                                            and all(same))}
+        if not res["bit_equal_run_to_run"]:
+            res["leaves_differing"] = [
+                p for p, s in zip(tree_paths(params), same) if not s]
+            res["nondeterministic_ops"] = nondeterministic_ops(
+                torch, lambda: lm.loss_and_grads(p_dev, cfg, b_dev))
+        out[arch] = res
+    out["card"] = card
+    return out
+
+
+def checkpoint_round_trip(torch, params, state, card: str) -> dict:
+    """19d: ``save_pytree`` of 19a's params and AdamW state (bf16 stored
+    as fp32) to a directory under ``build/``, then ``load_pytree`` on the
+    card: every leaf bit-equal, the paths in JAX's naming; seconds and
+    GB/s each way; the directory is removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.tree import tree_leaves
+
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_", dir=build))
+    try:
+        tree = {"params": params, "opt": state}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(tmp / "smollm", tree, step=1 + TRAIN_TIMED_STEPS,
+                    extra={"arch": TRAIN_ARCH})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in tmp.iterdir())
+        t0 = time.perf_counter()
+        got, manifest = load_pytree(tmp / "smollm", tree, device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = tree_leaves(tree)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(want, tree_leaves(got))),
+              "19d: a restored leaf differs")
+        n = len(tree_leaves(params))
+        paths = manifest["paths"]
+        check(len(paths) == 3 * n + 1 and paths[0] == "opt/.mu/blocks/attn/wk"
+              and paths[2 * n] == "opt/.count"
+              and "opt/.nu/embed" in paths and paths[-1] == "params/final_norm"
+              and paths[2 * n + 1] == "params/blocks/attn/wk",
+              f"19d: paths not in JAX's naming: {paths[:3]} ...")
+    finally:
+        shutil.rmtree(tmp)
+    return {"leaves": len(want), "bytes": nbytes, "save_s": save_s,
+            "save_gb_per_s": nbytes / save_s / 1e9, "load_s": load_s,
+            "load_gb_per_s": nbytes / load_s / 1e9, "card": card}
+
+
+def fedopt_phase(torch, np, card: str) -> dict:
+    """19e: ``FederatedLMTrainer`` on smollm-360m at published width (bf16,
+    AdamW): FED_SILOS silos of FED_LOCAL_STEPS steps of FED_BATCH ×
+    FED_SEQ tokens, top-10 % deltas with stale aggregation, FED_ROUNDS
+    rounds.  Round 1 must leave the anchor bit-unchanged and round 2
+    move it; the comm fraction is 0.1 and ``comm_bytes_per_round`` 10 %
+    of the anchor's bytes.  Round seconds and the sparsifier's (a sort of
+    each leaf's magnitudes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fedopt as fedopt_mod
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    fed = fedopt_mod.FedOptConfig(num_silos=FED_SILOS,
+                                  local_steps=FED_LOCAL_STEPS,
+                                  delta_topk_frac=FED_FRAC,
+                                  stale_aggregation=True)
+    t0 = time.perf_counter()
+    tr = fedopt_mod.FederatedLMTrainer(
+        cfg, make_optimizer(cfg), fed,
+        generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    anchor_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(tr.anchor))
+    rounds, sparsify_s = [], []
+    for r in range(FED_ROUNDS):
+        gens = [synthetic_batches(cfg, batch=FED_BATCH, seq=FED_SEQ,
+                                  seed=10 * r + s, device=DEV)
+                for s in range(FED_SILOS)]
+        per = [[next(g) for _ in range(FED_LOCAL_STEPS)] for g in gens]
+        batches = {k: torch.stack([torch.stack([b[k] for b in s])
+                                   for s in per]) for k in per[0][0]}
+        before = [t.clone() for t in tree_leaves(tr.anchor)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed(fedopt_mod, "_topk_sparsify", sparsify_s,
+                   sync=torch.cuda.synchronize):
+            m = tr.round(batches)
+        torch.cuda.synchronize()
+        rounds.append({"seconds": time.perf_counter() - t0, **m})
+        moved = [not torch.equal(a, b) for a, b in
+                 zip(before, tree_leaves(tr.anchor))]
+        check(np.isfinite(m["loss"]), f"19e: round {r + 1} loss {m['loss']}")
+        check(abs(m["comm_fraction"] - FED_FRAC) < 1e-9,
+              f"19e: comm fraction {m['comm_fraction']}")
+        if r == 0:
+            check(not any(moved), "19e: stale round 1 moved the anchor")
+        else:
+            check(any(moved), "19e: round 2 left the anchor as it was")
+        del before
+    kept = tr.pending_delta
+    nnz = sum(int((t != 0).sum()) for t in tree_leaves(kept)
+              if t.dim() > 0)
+    total = sum(t.numel() for t in tree_leaves(kept) if t.dim() > 0)
+    check(tr.comm_bytes_per_round() == int(anchor_bytes * FED_FRAC),
+          f"19e: comm_bytes_per_round {tr.comm_bytes_per_round()} for "
+          f"{anchor_bytes} anchor bytes")
+    out = {"silos": FED_SILOS, "local_steps": FED_LOCAL_STEPS,
+           "batch": FED_BATCH, "seq": FED_SEQ, "topk_frac": FED_FRAC,
+           "stale": True, "init_s": init_s, "rounds": rounds,
+           "sparsify_s": sparsify_s, "sparsified_values": total,
+           "kept_share_of_last_delta": nnz / total,
+           "comm_bytes_per_round": tr.comm_bytes_per_round(),
+           "anchor_bytes": anchor_bytes, "card": card}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_phase(torch, np, card: str) -> dict:
+    """19: LM training: 19a smollm-360m train_4k, 19b deepseek and mamba2
+    cut in depth, 19c card against CPU per reduced config, 19d the
+    checkpoint of 19a's state, 19e fedopt.  The launch counters are
+    zeroed just before and read just after: the path runs no kernel of
+    the port (its attention is the blocked recurrence in plain PyTorch)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["19a"], cfg, params, state = train_smollm(torch, np, card)
+    out["19a"]["phase_s"] = time.perf_counter() - t0
+    print("19a: " + json.dumps(out["19a"]), flush=True)
+    out["19d"] = checkpoint_round_trip(torch, params, state, card)
+    print("19d: " + json.dumps(out["19d"]), flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["19b"] = train_cut(torch, np, card)
+    print(f"19b ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(out["19b"]), flush=True)
+    t0 = time.perf_counter()
+    out["19c"] = train_reference(torch, np, card)
+    print(f"19c ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(out["19c"]), flush=True)
+    t0 = time.perf_counter()
+    out["19e"] = fedopt_phase(torch, np, card)
+    out["19e"]["phase_s"] = time.perf_counter() - t0
+    print("19e: " + json.dumps(out["19e"]), flush=True)
+    counts = ops.launch_counts()
+    print("19 launches: " + json.dumps(counts), flush=True)
+    check(not any(counts.values()),
+          f"19: the training path launched a kernel of the port: {counts}")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -4194,6 +4620,20 @@ def main() -> int:
                       "card_vs_cpu": zoo["reference"][arch]["max_rel_err"]}
                for arch in ZOO}
     print(f"18: LM zoo in {time.perf_counter() - t0:.1f} s on {card}: "
+          + json.dumps(summary), flush=True)
+    t0 = time.perf_counter()
+    trained = lm_train_phase(torch, np, card)
+    summary = {"smollm_train_4k": {k: trained["19a"][k] for k in (
+        "step_ms", "tokens_per_s", "mfu", "peak_mem_gb",
+        "device_idle_share")},
+        "cut": {a: r["tokens_per_s"] for a, r in trained["19b"].items()},
+        "card_vs_cpu_grad_max_rel_err": max(
+            r["grad_max_rel_err"] for a, r in trained["19c"].items()
+            if a != "card"),
+        "checkpoint_gb_per_s": [trained["19d"]["save_gb_per_s"],
+                                trained["19d"]["load_gb_per_s"]],
+        "fedopt_round_s": [r["seconds"] for r in trained["19e"]["rounds"]]}
+    print(f"19: LM training in {time.perf_counter() - t0:.1f} s on {card}: "
           + json.dumps(summary), flush=True)
     for row in report:
         name = row["name"]

@@ -8,6 +8,9 @@ Counterpart of ``repro/models/lm.py``::
     logits, aux       = forward(params, cfg, batch)
     cache             = init_cache(cfg, batch, capacity, prefill_len=...)
     logits, cache     = decode_step(params, cfg, tokens, cache)
+    total, metrics    = loss_fn(params, cfg, batch)
+    total, m, grads   = loss_and_grads(params, cfg, batch)
+    params, state, m  = make_train_step(cfg, opt)(params, state, batch)
 
 Families: dense and MoE (GQA or DeepSeek's MLA attention; MoE FFNs after
 ``first_dense_layers`` dense ones, kept as the unstacked ``head_blocks``
@@ -20,9 +23,12 @@ layers).
 Homogeneous stacks are stacked along a leading layer axis, as JAX's
 ``_stacked`` leaves them (``blocks["attn"]["wq"]`` is (L, D, H, dh)), so
 a JAX parameter tree loads leaf for leaf; JAX's ``lax.scan`` over a
-stack is a Python loop over the layer index here.  The forward leaves
-out JAX's sharding hooks (``constrain``, ``constrain_block_params``) and
-``jax.checkpoint`` remat: they belong to training and the pod tooling.
+stack is a Python loop over the layer index here.  With ``cfg.remat``
+the forward recomputes each scanned unit in the backward
+(``torch.utils.checkpoint``) where JAX wraps it in ``jax.checkpoint``; it
+leaves out JAX's sharding hooks (``constrain``, ``constrain_block_params``),
+which belong to the pod tooling.  The optimizer steps the leaves in
+JAX's flattening order (:func:`repro_torch.tree.tree_leaves`).
 Caches are stacked the same way and updated in place (see
 :mod:`repro_torch.models.layers`).  A ``sliding_window`` config turns
 the ring buffers into the long-context variant.  Every decode attention
@@ -34,10 +40,11 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import to_tensor, tree_leaves, tree_unflatten
 
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -248,14 +255,6 @@ def init_params(cfg: ModelConfig, *,
     return p
 
 
-def _to_tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":          # ml_dtypes: same 16 bits
-        return torch.from_numpy(a.view(np.uint16).copy()) \
-            .view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
 def _convert(tree, like, cfg: ModelConfig, device, path: str):
     """``tree`` as tensors on ``device``, each leaf checked against the
     shape and dtype of ``like``'s (a meta-device ``init_params``)."""
@@ -276,7 +275,7 @@ def _convert(tree, like, cfg: ModelConfig, device, path: str):
         if tree is not None:
             raise ValueError(f"{where}: a bias where {cfg.name} has none")
         return None
-    t = _to_tensor(tree, device)
+    t = to_tensor(tree, device)
     if t.shape != like.shape or t.dtype != like.dtype:
         raise ValueError(f"{where}: {tuple(t.shape)} {t.dtype}, expected "
                          f"{tuple(like.shape)} {like.dtype}")
@@ -295,40 +294,26 @@ def from_jax_params(tree, cfg: ModelConfig, device: str = "cuda") -> Params:
 
 
 def param_count(params: Params) -> int:
-    if isinstance(params, dict):
-        return sum(param_count(v) for v in params.values())
-    if isinstance(params, list):
-        return sum(param_count(v) for v in params)
-    return 0 if params is None else params.numel()
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i``'s view of a stacked tree (tensors are views, so
-    in-place writes reach the stack)."""
-    return {k: (_layer(v, i) if isinstance(v, dict)
-                else None if v is None else v[i])
-            for k, v in tree.items()}
-
-
 def _layers(tree: dict) -> list[dict]:
-    """Every layer's view of a stacked tree."""
-    n = next(_leaves(tree)).shape[0]
-    return [_layer(tree, i) for i in range(n)]
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    elif tree is not None:
-        yield tree
+    """Every layer's view of a stacked tree, by one ``torch.unbind`` a
+    leaf: in-place writes reach the stack, and under autograd the
+    gradients of all layers are stacked once, where indexing layer by
+    layer would add a zero-filled gradient of the whole stack a layer."""
+    n = tree_leaves(tree)[0].shape[0]
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v) if isinstance(v, dict) \
+            else [None] * n if v is None else v.unbind(0)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 def _encode(params: Params, cfg: ModelConfig,
@@ -355,13 +340,35 @@ def _encode(params: Params, cfg: ModelConfig,
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
+def _maybe_remat(f, cfg: ModelConfig):
+    """``f`` recomputed in the backward when ``cfg.remat`` is set and
+    autograd records the call (JAX's ``_maybe_remat``): only the unit's
+    inputs are kept, not its intermediates.  A forward that records
+    nothing (prefill, decode) runs ``f`` as it is."""
+    if not cfg.remat:
+        return f
+
+    def run(*args):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in tree_leaves(args)
+                if isinstance(t, torch.Tensor)):
+            return torch.utils.checkpoint.checkpoint(f, *args,
+                                                     use_reentrant=False)
+        return f(*args)
+    return run
+
+
 def forward(params: Params, cfg: ModelConfig, batch: dict, *,
             window: Optional[int] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (the prefill step).  batch: {"tokens":
-    (B, S) integer ids, and for the VLM "vision": (B, Tv, vision_dim),
-    for audio "frames": (B, Te, D)}, on the parameters' device.  Returns
-    (logits (B, S, V), the MoE layers' summed aux loss, fp32 0-dim)."""
+    """Full-sequence forward (prefill, and training under autograd).
+    batch: {"tokens": (B, S) integer ids, and for the VLM "vision":
+    (B, Tv, vision_dim), for audio "frames": (B, Te, D)}, on the
+    parameters' device.  Returns (logits (B, S, V), the MoE layers'
+    summed aux loss, fp32 0-dim).  The units JAX scans under remat (a
+    dense or MoE block of the stack, an SSM block, a hybrid block, a VLM
+    super-block) go through :func:`_maybe_remat`; ``head_blocks`` and
+    Whisper's layer lists do not, as in JAX."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     window = window if window is not None else cfg.sliding_window
@@ -372,21 +379,35 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
     fam = cfg.family
 
     if fam in ("dense", "moe"):
-        for lp in params.get("head_blocks", []) + _layers(params["blocks"]):
+        for lp in params.get("head_blocks", []):
             x, aux = _dense_layer_fwd(lp, cfg, x, positions=positions,
                                       window=window)
             if aux is not None:
                 aux_total = aux_total + aux
+
+        def dense_blk(x, aux_total, lp):
+            x, aux = _dense_layer_fwd(lp, cfg, x, positions=positions,
+                                      window=window)
+            return x, aux_total if aux is None else aux_total + aux
+
+        blk = _maybe_remat(dense_blk, cfg)
+        for lp in _layers(params["blocks"]):
+            x, aux_total = blk(x, aux_total, lp)
     elif fam == "ssm":
+        blk = _maybe_remat(
+            lambda x, lp: _ssm_layer_fwd(lp, cfg, x), cfg)
         for lp in _layers(params["blocks"]):
-            x = _ssm_layer_fwd(lp, cfg, x)
+            x = blk(x, lp)
     elif fam == "hybrid":
+        blk = _maybe_remat(
+            lambda x, lp: _hybrid_layer_fwd(lp, cfg, x, positions=positions,
+                                            window=window), cfg)
         for lp in _layers(params["blocks"]):
-            x = _hybrid_layer_fwd(lp, cfg, x, positions=positions,
-                                  window=window)
+            x = blk(x, lp)
     elif fam == "vlm":
         memory = batch["vision"] @ params["vis_proj"]
-        for lp in _layers(params["blocks"]):
+
+        def super_blk(x, memory, lp):
             for sp in _layers(lp["self"]):
                 x, _ = _dense_layer_fwd(sp, cfg, x, positions=positions,
                                         window=window)
@@ -395,6 +416,11 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
                 lp["cross"], cfg, h, memory)
             x, _ = _dense_layer_fwd(lp["tail"], cfg, x, positions=positions,
                                     window=window)
+            return x
+
+        blk = _maybe_remat(super_blk, cfg)
+        for lp in _layers(params["blocks"]):
+            x = blk(x, memory, lp)
     elif fam == "audio":
         enc = _encode(params, cfg, batch["frames"])
         for lp in params["dec_blocks"]:
@@ -408,6 +434,84 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, aux_total
+
+
+# ---------------------------------------------------------------------------
+# loss / train step
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            aux_weight: float = 0.01
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy over ``batch["labels"]`` (B, S), labels
+    < 0 masked out: the fp32 log-softmax's NLL summed over the kept
+    labels and divided by max(their count, 1).  Returns (loss +
+    aux_weight · aux, {"loss", "aux"}).  A masked label is clamped to
+    class 0 before the gather (``torch.gather`` refuses −1, where JAX's
+    ``take_along_axis`` wraps it); the mask zeroes it either way."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
+
+
+def loss_and_grads(params: Params, cfg: ModelConfig, batch: dict
+                   ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
+    """(total loss, {"loss", "aux"}, the gradient of every leaf in
+    :func:`tree_leaves` order), all detached: ``jax.value_and_grad`` of
+    :func:`loss_fn` (a leaf the loss does not reach gets zeros)."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    total, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            list(grads))
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
+                    accum_dtype: torch.dtype = torch.float32):
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``, the state ``optimizer.init(tree_leaves(params))``
+    (the optimizer steps the leaves in :func:`tree_leaves` order).
+
+    ``microbatches`` > 1 accumulates gradients: the batch splits along
+    dim 0 into that many contiguous slices (JAX's ``reshape((m, B//m)
+    + …)``), each slice's gradients are cast to ``accum_dtype`` and
+    added, and gradients and metrics are divided by ``microbatches``, so
+    activation memory scales with the slice.  Metrics are detached fp32
+    0-dim tensors."""
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            _, metrics, grads = loss_and_grads(params, cfg, batch)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % microbatches:
+                raise ValueError(f"a batch of {B} does not split into "
+                                 f"{microbatches} microbatches")
+            n = B // microbatches
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                     for p in tree_leaves(params)]
+            dev = grads[0].device
+            metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                       for k in ("loss", "aux")}
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                _, m, g = loss_and_grads(params, cfg, mb)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.to(acc.dtype))
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+                del g
+            grads = [g / microbatches for g in grads]
+            metrics = {k: v / microbatches for k, v in metrics.items()}
+        leaves, opt_state = optimizer.step(tree_leaves(params), grads,
+                                           opt_state)
+        return tree_unflatten(params, leaves), opt_state, metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 AdamW and Adafactor)."""
 
 from .optimizer import (AdafactorState, AdamState, Optimizer, adafactor,
-                        adam, adamw, sgd)
+                        adam, adamw, from_jax_opt_state, sgd)
 
 __all__ = ["AdafactorState", "AdamState", "Optimizer", "sgd", "adam",
-           "adamw", "adafactor"]
+           "adamw", "adafactor", "from_jax_opt_state"]

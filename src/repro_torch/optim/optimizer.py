@@ -21,6 +21,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.tree import to_tensor, tree_leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -178,3 +180,35 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
                                count))
 
     return Optimizer(f"adafactor(lr={lr})", init, step)
+
+
+# -- state carried across from the JAX package -------------------------------
+
+def from_jax_opt_state(state, params: Any) -> Any:
+    """The JAX package's optimizer state, its leaves as numpy arrays
+    (``AdamState`` or ``AdafactorState`` of parameter-shaped trees,
+    ``()`` for SGD, a velocity tree for SGD with momentum), as the port's
+    state for ``params``: each tree a list in :func:`tree_leaves` order,
+    on the parameters' device.  Adafactor's vector leaves keep their
+    ``()`` column statistics."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device
+
+    def as_list(tree, what):
+        out = [to_tensor(a, device) for a in tree_leaves(tree)]
+        if len(out) != len(leaves):
+            raise ValueError(f"{what}: {len(out)} leaves for "
+                             f"{len(leaves)} parameters")
+        return out
+
+    fields = getattr(state, "_fields", None)
+    if fields == AdamState._fields:
+        return AdamState(as_list(state.mu, "mu"), as_list(state.nu, "nu"),
+                         to_tensor(state.count, device))
+    if fields == AdafactorState._fields:
+        return AdafactorState(as_list(state.vr, "vr"),
+                              as_list(state.vc, "vc"),
+                              to_tensor(state.count, device))
+    if isinstance(state, tuple) and not state:
+        return ()
+    return as_list(state, "momentum")

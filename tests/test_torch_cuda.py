@@ -21,6 +21,10 @@ only in rounding the fp32 result, within one bf16 step of each element
 (2^-7 of it, plus 1e-5 near zero).  A short training
 round on the card is held to the same round on the CPU, and a
 full-width smollm-360m batcher serves its requests through the kernel.
+The LM training step of reduced configs (fp32, TF32 off) is held to the
+CPU (the loss within 1e-5, each gradient leaf within 1e-4 of its
+largest |g|, one SGD step within 1e-6), remat on and off agree, and a
+checkpoint of bf16 leaves and AdamW state round-trips on the card.
 """
 
 import dataclasses
@@ -47,6 +51,7 @@ from repro_torch.launch.steps import shape_variant
 from repro_torch.models import lm
 from repro_torch.models.gnn import (blocks_to_arrays, init_gnn, loss_fn,
                                     to_device)
+from repro_torch.tree import tree_leaves, tree_paths
 
 pytestmark = pytest.mark.gpu
 
@@ -795,3 +800,106 @@ def test_frontend_round_trip_on_the_card(cuda):
     np.testing.assert_array_equal(preds, np.array(want, np.int32))
     np.testing.assert_array_equal(depths, np.full(len(vids), 3))
     assert np.all(np.isfinite(confs)) and stats["served"] == len(vids)
+
+
+# -- LM training ---------------------------------------------------------------
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device, copy=True)
+
+
+def _reduced_step_inputs(arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import synthetic_batches
+
+    cfg = get_reduced(arch)
+    S = cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else 8
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    if cfg.family == "vlm":
+        params["blocks"]["gate"] += 0.5
+    batch = next(synthetic_batches(cfg, batch=2, seq=S, seed=0,
+                                   device="cpu"))
+    batch["labels"][0, :3] = -1
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-lite-16b",
+                                  "mamba2-1.3b", "llama-3.2-vision-11b",
+                                  "whisper-tiny"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32, TF32 off: the loss within 1e-5, each gradient leaf within
+    1e-4 of its largest |g| on the CPU (floored at 1e-3 of the whole
+    gradient's), and after one SGD step every parameter within 1e-6."""
+    from repro_torch.optim import sgd
+
+    cfg, params, batch = _reduced_step_inputs(arch)
+    p_dev, b_dev = _tree_to(params, cuda), _tree_to(batch, cuda)
+    loss_c, _, g_c = lm.loss_and_grads(params, cfg, batch)
+    loss_d, _, g_d = lm.loss_and_grads(p_dev, cfg, b_dev)
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-5 * max(
+        1.0, abs(float(loss_c)))
+    floor = 1e-3 * max(float(g.abs().max()) for g in g_c)
+    for path, a, b in zip(tree_paths(params), g_d, g_c):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), floor), path
+    opt = sgd(0.1)
+    step = lm.make_train_step(cfg, opt)
+    new_c, _, _ = step(params, opt.init(tree_leaves(params)), batch)
+    new_d, _, m = step(p_dev, opt.init(tree_leaves(p_dev)), b_dev)
+    assert m["loss"].device.type == "cuda"
+    for a, b in zip(tree_leaves(new_d), tree_leaves(new_c)):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b",
+                                  "llama-3.2-vision-11b"])
+def test_lm_remat_on_and_off_agree_on_the_card(cuda, arch):
+    """Recomputing the scanned units in the backward changes no bit where
+    the step is deterministic on the card (two runs without remat equal);
+    else remat stays within 1e-6 of the largest |g| of each leaf."""
+    cfg, params, batch = _reduced_step_inputs(arch)
+    p_dev, b_dev = _tree_to(params, cuda), _tree_to(batch, cuda)
+    off = dataclasses.replace(cfg, remat=False)
+    on_l, _, on_g = lm.loss_and_grads(p_dev, cfg, b_dev)
+    off_l, _, off_g = lm.loss_and_grads(p_dev, off, b_dev)
+    off2_l, _, off2_g = lm.loss_and_grads(p_dev, off, b_dev)
+    if torch.equal(off_l, off2_l) and all(
+            torch.equal(a, b) for a, b in zip(off_g, off2_g)):
+        assert torch.equal(on_l, off_l)
+        assert all(torch.equal(a, b) for a, b in zip(on_g, off_g))
+    else:
+        for a, b in zip(on_g, off_g):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                float(b.abs().max()), 1e-30)
+
+
+def test_checkpoint_round_trip_of_bf16_leaves_on_the_card(cuda, tmp_path):
+    """bf16 parameters and AdamW state saved from the card and loaded
+    back onto it: every leaf bit-equal, dtypes kept."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_reduced
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_reduced("smollm-360m"),
+                              param_dtype="bfloat16")
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    opt = adamw(1e-3)
+    state = opt.init(tree_leaves(params))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for t in state.mu + state.nu:
+        t.normal_(generator=gen)
+    tree = {"params": params, "opt": state}
+    save_pytree(tmp_path / "ck", tree, step=3)
+    got, manifest = load_pytree(tmp_path / "ck", tree)
+    assert manifest["step"] == 3 and "params/embed" in manifest["paths"]
+    for a, b in zip(tree_leaves(tree), tree_leaves(got)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert any(t.dtype == torch.bfloat16 for t in tree_leaves(got))

@@ -211,9 +211,8 @@ def _seed_cross(params, cfg, cache, batch):
     decode cache."""
     if cfg.family == "vlm":
         memory = batch["vision"] @ params["vis_proj"]
-        layers = [lm._layer(params["blocks"], i)["cross"]
-                  for i in range(cache["blocks"]["cross_k"].shape[0])]
-        caches = [lm._layer(cache["blocks"], i) for i in range(len(layers))]
+        layers = [lp["cross"] for lp in lm._layers(params["blocks"])]
+        caches = lm._layers(cache["blocks"])
     elif cfg.family == "audio":
         memory = lm._encode(params, cfg, batch["frames"])
         layers = [lp["cross"] for lp in params["dec_blocks"]]

@@ -8,13 +8,15 @@ import pathlib
 
 import pytest
 
-from repro_torch.core import embedding_server, federated, pruning, serving
+from repro_torch import checkpoint
+from repro_torch.core import (embedding_server, federated, fedopt, pruning,
+                              serving)
 from repro_torch.data import pipeline
 from repro_torch.exchange import socket_transport, transport
 from repro_torch.fedsvc import coordinator, runtime, worker
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
-from repro_torch.launch import embed_server, gnn_serve
+from repro_torch.launch import embed_server, gnn_serve, train
 from repro_torch.models import gnn, layers, lm, moe, ssm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -66,9 +68,14 @@ def test_scan_catches_a_jax_import(tmp_path):
     worker.FedWorker.__init__, coordinator.CoordinatorState.__init__,
     gnn_serve.build_plane_from_cfg, moe.init_moe, ssm.init_ssm,
     ssm.init_ssm_cache, layers.init_mla_cache, pipeline.synthetic_batches,
+    fedopt.FederatedLMTrainer.__init__, checkpoint.load_pytree,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_train_launcher_defaults_to_the_card():
+    assert train.parser().parse_args([]).device == "cuda"
 
 
 def test_store_and_serving_launchers_default_to_the_card(tmp_path):
