@@ -283,6 +283,23 @@ Phases, each of which fails the run:
    bit-unchanged, round 2 moves it, comm fraction 0.1 and
    ``comm_bytes_per_round`` 10 % of the anchor's bytes.  The launch
    counters are zeroed before the phase and must read zero after it.
+20. The pod tooling.  (b) and (c) start first, as processes of their
+   own that never touch the card (a ``fake`` world of 256 or 512 CPU
+   ranks, meta-device shards): ``python -m repro_torch.launch.dryrun``
+   for smollm-360m decode_32k on the single-pod and the multi-pod mesh,
+   and ``python -m repro_torch.launch.fedrun`` for smollm-360m with 1
+   local step, batch 32, sequence 256 and top-10 % deltas (cut from 4,
+   64 and 1024).  Meanwhile (a) lays out the host mesh on the card,
+   (data=1, model=1) over an NCCL world of one, and runs smollm-360m at
+   full width and depth in bf16 through ``launch.steps.build_step``: one
+   train step of 2 × 1024 tokens (AdamW, 2 microbatches, remat), a
+   prefill of 2 × 1024 and 32 greedy decode steps at 8 lanes × 8192
+   slots (a seeded ring that has seen all but one slot), each beside the
+   unsharded port on the same inputs (max |Δ|, expected 0; the train
+   step's parameters within 2·lr plus a bf16 step, the logits within
+   1e-5 of the largest); the decode attention must launch 32 × 32 times
+   in the sharded decode.  Then (b)'s and (c)'s records are read: ok on
+   256 and 512 ranks, FLOPs and collective bytes counted.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -4482,6 +4499,233 @@ def lm_train_phase(torch, np, card: str) -> dict:
     return out
 
 
+# -- phase 20: the pod tooling ------------------------------------------------
+
+POD_ARCH = "smollm-360m"      # full width and depth, bf16
+POD_TRAIN = (2, 1024)         # 20a: one train step of 2 × 1024 tokens
+POD_MICROBATCHES = 2
+POD_PREFILL = (2, 1024)       # 20a: prefill of 2 × 1024 tokens
+POD_LANES = 8                 # 20a: decode, 8 lanes × 8192 slots
+POD_SLOTS = 8192
+POD_STEPS = 32
+POD_LR = 3e-4                 # make_optimizer's AdamW
+#: 20c: fedrun cut from its defaults (4 local steps, batch 64, seq 1024)
+POD_FED_ARGS = ("--local-steps", "1", "--batch", "32", "--seq", "256",
+                "--topk", "0.1")
+POD_TIMEOUT = 300             # seconds for each CLI process
+
+
+def _full(t):
+    """A DTensor's global value, a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _max_abs(torch, a, b) -> float:
+    return float((_full(a).float() - _full(b).float()).abs().max())
+
+
+def pod_cli_start(root: pathlib.Path) -> dict:
+    """20b and 20c as processes of their own (each a fake world of 256 or
+    512 CPU ranks; they never touch the card): ``repro_torch.launch.
+    dryrun`` for smollm-360m decode_32k on each production mesh and
+    ``repro_torch.launch.fedrun`` at :data:`POD_FED_ARGS`."""
+    out_dir = root / "build" / "pod"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    cmds = {f"dryrun_{m}": ["-m", "repro_torch.launch.dryrun", "--arch",
+                            POD_ARCH, "--shape", "decode_32k", "--mesh", m,
+                            "--out", str(out_dir / f"dryrun_{m}.json")]
+            for m in ("single", "multi")}
+    cmds["fedrun"] = ["-m", "repro_torch.launch.fedrun", "--arch", POD_ARCH,
+                      *POD_FED_ARGS, "--out", str(out_dir / "fedrun.json")]
+    procs = {}
+    for name, args in cmds.items():
+        (out_dir / f"{name}.json").unlink(missing_ok=True)
+        procs[name] = subprocess.Popen(
+            [sys.executable, *args], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def pod_cli_finish(started: dict) -> dict:
+    """The records 20b and 20c printed as their last lines: each process
+    must exit 0 with ``ok`` records, the fedrun's with FLOPs counted."""
+    out = {}
+    try:
+        for name, proc in started["procs"].items():
+            stdout, stderr = proc.communicate(timeout=POD_TIMEOUT)
+            check(proc.returncode == 0,
+                  f"20: {name} exited {proc.returncode}: {stderr[-2000:]}")
+            rec = json.loads(stdout.strip().splitlines()[-1])
+            out[name] = rec
+    finally:
+        for proc in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for m in ("single", "multi"):
+        rec = out[f"dryrun_{m}"]
+        check(rec["ok"], f"20b: the dry-run on the {m} mesh failed: "
+                         f"{rec.get('error')}")
+        check(rec["devices"] == (256 if m == "single" else 512),
+              f"20b: {rec['devices']} ranks on the {m} mesh")
+        check(rec["census"]["flops"] > 0, f"20b: no FLOPs on the {m} mesh")
+    check(out["fedrun"]["census_flops"] > 0
+          and out["fedrun"]["collective_total"] > 0,
+          "20c: the federated round counted no FLOPs or no collective")
+    out["wall_s"] = time.perf_counter() - started["t0"]
+    return out
+
+
+def pod_host_phase(torch, np, card: str, cfg=None, dev: str = DEV,
+                   sizes: dict | None = None) -> tuple[dict, int]:
+    """20a: ``build_step`` on the host mesh, (data=1, model=1) over a
+    world of one (NCCL on the card), for ``cfg`` (smollm-360m at full
+    width and depth in bf16): one train step (AdamW, 2 microbatches with
+    remat), a prefill and greedy decode steps over a seeded ring cache
+    that has seen all but one slot, each beside the unsharded port on the
+    same inputs on the card (max |Δ|; expected 0).  The decode
+    attention's launches are counted over the sharded decode only.
+    Returns (the record, those launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step, make_optimizer
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    sizes = sizes or {"train": POD_TRAIN, "prefill": POD_PREFILL,
+                      "lanes": POD_LANES, "slots": POD_SLOTS,
+                      "steps": POD_STEPS}
+    cfg = cfg or get_config(POD_ARCH)
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    out: dict = {"backend": dist.get_backend(), "mesh": str(mesh),
+                 "arch": cfg.name, "card": card}
+    try:
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+
+        B, S = sizes["train"]
+        t0 = time.perf_counter()
+        train = build_step(cfg, InputShape("pod", "train", S, B), mesh,
+                           microbatches=POD_MICROBATCHES)
+        opt = make_optimizer(train.cfg)
+        state = opt.init(tree_leaves(params))
+        batch = next(synthetic_batches(train.cfg, batch=B, seq=S, seed=0,
+                                       device=dev))
+        p1, s1, m1 = train.run(params, state, batch)
+        loss1 = float(_full(m1["loss"]))
+        out["train_s"] = time.perf_counter() - t0
+        p0, s0, m0 = lm.make_train_step(
+            train.cfg, opt, microbatches=POD_MICROBATCHES)(params, state,
+                                                           batch)
+        loss0 = float(m0["loss"])
+        errs = [_max_abs(torch, a, b) for a, b in
+                zip(tree_leaves(p1), tree_leaves(p0))]
+        scale = max(float(p.float().abs().max())
+                    for p in tree_leaves(p0))
+        out["train"] = {"loss": loss1, "loss_unsharded": loss0,
+                        "params_max_abs_diff": max(errs),
+                        "leaves_bit_equal": sum(e == 0 for e in errs),
+                        "leaves": len(errs)}
+        check(np.isfinite(loss1) and abs(loss1 - loss0)
+              <= 1e-5 * max(1.0, abs(loss0)),
+              f"20a: the sharded train step's loss {loss1} against {loss0}")
+        # AdamW's first step moves an entry by about lr·sign(g): where the
+        # card's backward adds in another order a gradient near zero may
+        # flip, never more than 2·lr plus a bf16 step of the largest |p|
+        check(max(errs) <= 2 * POD_LR + 2.0 ** -7 * scale,
+              f"20a: sharded parameters off by {max(errs)}")
+        del p1, s1, p0, s0, state
+
+        B, S = sizes["prefill"]
+        t0 = time.perf_counter()
+        prefill = build_step(cfg, InputShape("pod", "prefill", S, B), mesh)
+        fwd = {"tokens": next(synthetic_batches(
+            prefill.cfg, batch=B, seq=S, seed=1, device=dev))["tokens"]}
+        with torch.no_grad():
+            l1 = prefill.run(params, fwd)
+            out["prefill_s"] = time.perf_counter() - t0
+            l0, _ = lm.forward(params, prefill.cfg, fwd)
+        err = _max_abs(torch, l1, l0)
+        top = float(l0.float().abs().max())
+        out["prefill"] = {"logits_max_abs_diff": err, "max_abs_logit": top}
+        check(bool(torch.isfinite(_full(l1)).all()) and err <= 1e-5 * top,
+              f"20a: sharded prefill logits off by {err} (largest {top})")
+        del l1, l0
+
+        lanes, slots = sizes["lanes"], sizes["slots"]
+        decode = build_step(cfg, InputShape("pod", "decode", slots, lanes),
+                            mesh)
+        c1 = lm.init_cache(decode.cfg, lanes, slots,
+                           prefill_len=slots - 1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for leaf in tree_leaves(c1):
+            if leaf.is_floating_point():
+                leaf.normal_(generator=gen)
+        c0 = tree_to(c1, dev)
+        toks = [torch.randint(0, cfg.vocab_size, (lanes, 1), generator=gen,
+                              device=dev, dtype=torch.int32)]
+        errs, logits1 = [], []
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            for _ in range(sizes["steps"]):          # greedy, sharded
+                lg, c1 = decode.run(params, toks[-1], c1)
+                logits1.append(_full(lg))
+                toks.append(logits1[-1].argmax(-1).to(torch.int32))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches = ops.launch_counts()["swa_attention_decode"]
+            out["decode_s"] = time.perf_counter() - t0
+            for tok, lg1 in zip(toks, logits1):      # the same tokens
+                lg0, c0 = lm.decode_step(params, decode.cfg, tok, c0)
+                errs.append(_max_abs(torch, lg1, lg0))
+        top = max(float(t.float().abs().max()) for t in logits1)
+        out["decode"] = {"steps": sizes["steps"], "lanes": lanes,
+                         "slots": slots, "logits_max_abs_diff": max(errs),
+                         "max_abs_logit": top,
+                         "swa_attention_decode_launches": launches}
+        check(max(errs) <= 1e-5 * top,
+              f"20a: sharded decode logits off by {max(errs)}")
+        want = sizes["steps"] * cfg.num_layers if dev == "cuda" else 0
+        check(launches == want, f"20a: the decode attention launched "
+                                f"{launches} times, expected {want}")
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def pod_phase(torch, np, card: str, root: pathlib.Path) -> tuple[dict, int]:
+    """20: the pod tooling.  20b and 20c start as processes, 20a runs on
+    the card meanwhile; then their records are read."""
+    t0 = time.perf_counter()
+    started = pod_cli_start(root)
+    try:
+        host, launches = pod_host_phase(torch, np, card)
+    except BaseException:
+        for proc in started["procs"].values():
+            proc.kill()
+            proc.wait()
+        raise
+    print("20a: " + json.dumps(host), flush=True)
+    cli = pod_cli_finish(started)
+    for name in ("dryrun_single", "dryrun_multi", "fedrun"):
+        print(f"20{'c' if name == 'fedrun' else 'b'} {name}: "
+              + json.dumps(cli[name]), flush=True)
+    return {"20a": host, "20bc": cli,
+            "phase_s": time.perf_counter() - t0}, launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -4635,6 +4879,20 @@ def main() -> int:
         "fedopt_round_s": [r["seconds"] for r in trained["19e"]["rounds"]]}
     print(f"19: LM training in {time.perf_counter() - t0:.1f} s on {card}: "
           + json.dumps(summary), flush=True)
+    pod, pod_launches = pod_phase(torch, np, card,
+                                  pathlib.Path(__file__).resolve().parent)
+    summary = {"20a": {k: pod["20a"][k] for k in (
+        "train_s", "prefill_s", "decode_s", "phase_s")},
+        "20a_max_abs_diff": {
+            "train_params": pod["20a"]["train"]["params_max_abs_diff"],
+            "prefill_logits": pod["20a"]["prefill"]["logits_max_abs_diff"],
+            "decode_logits": pod["20a"]["decode"]["logits_max_abs_diff"]},
+        "20b_trace_s": {m: pod["20bc"][f"dryrun_{m}"]["trace_s"]
+                        for m in ("single", "multi")},
+        "20c_trace_s": pod["20bc"]["fedrun"]["trace_s"],
+        "cli_wall_s": pod["20bc"]["wall_s"]}
+    print(f"20: pod tooling in {pod['phase_s']:.1f} s on {card}: "
+          + json.dumps(summary), flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -4647,12 +4905,15 @@ def main() -> int:
         row["launches_serve_tcp"] = serve_tcp_counts.get(name, 0)
         row["launches_growth"] = growth_counts.get(name, 0)
         row["launches_zoo"] = zoo_counts.get(name, 0)
+        row["launches_pod"] = pod_launches \
+            if name == "swa_attention_decode" else 0
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
                            + row["launches_sharded"] + row["launches_tcp"]
                            + row["launches_store"]
                            + row["launches_serve_tcp"]
-                           + row["launches_growth"] + row["launches_zoo"])
+                           + row["launches_growth"] + row["launches_zoo"]
+                           + row["launches_pod"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
@@ -4660,7 +4921,8 @@ def main() -> int:
           f"{json.dumps(lm_counts)} sharded {json.dumps(sharded_counts)} "
           f"tcp {json.dumps(tcp_counts)} store {json.dumps(store_counts)} "
           f"serve_tcp {json.dumps(serve_tcp_counts)} growth "
-          f"{json.dumps(growth_counts)} zoo {json.dumps(zoo_counts)}",
+          f"{json.dumps(growth_counts)} zoo {json.dumps(zoo_counts)} pod "
+          f"{json.dumps({'swa_attention_decode': pod_launches})}",
           flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()

@@ -67,8 +67,11 @@ def _quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
     last = x.numel() - 1            # an index past the end gathers the last
     lo = torch.clamp(low, min=0).to(torch.int64).clamp(max=last)
     hi = torch.clamp(high, min=0).to(torch.int64).clamp(max=last)
-    high_part = s[hi] * high_w
-    return (s[lo].double() * low_w.double() + high_part.double()).float()
+
+    def at(i):          # a gather, not .item(): a dry-run traces on meta
+        return s.index_select(0, i.reshape(1)).reshape(())
+    high_part = at(hi) * high_w
+    return (at(lo).double() * low_w.double() + high_part.double()).float()
 
 
 def _topk_sparsify(delta: Any, frac: float) -> tuple[Any, float]:

@@ -28,9 +28,139 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import NEG_INF
+
+# -- DTensor leaves -------------------------------------------------------------
+
+def const_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t``, a constant built inside the model (positions, masks, zeros),
+    on ``x``'s mesh when ``x`` is a DTensor: replicated, since every rank
+    builds the same values.  A plain ``x`` leaves ``t`` as it is."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor redistributed to every rank whole, before an op DTensor
+    has no sharding rule for (GSPMD would do the same); a plain tensor as
+    it is."""
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        return t.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return t
+
+
+def pad_dim(t: torch.Tensor, dim: int, before: int, after: int,
+            value=0) -> torch.Tensor:
+    """``F.pad`` of one dim by ``before`` / ``after`` entries of ``value``.
+    On a DTensor each rank pads its own shard, the dim made whole first
+    (DTensor's own rule for the pad miscounts mesh dims on some
+    releases)."""
+    dim = dim % t.dim()
+    pads = (0, 0) * (t.dim() - 1 - dim) + (before, after)
+    if not isinstance(t, DTensor):
+        return F.pad(t, pads, value=value)
+    mesh = t.device_mesh
+    pl = [Replicate() if p.is_shard(dim) else p for p in t.placements]
+    local = F.pad(t.redistribute(mesh, pl).to_local(), pads, value=value)
+    shape = list(t.shape)
+    shape[dim] += before + after
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: (B, S) ids → (B, S, D) rows.  On DTensors the
+    ids are gathered first (the index op's sharding rule refuses ids
+    split over two mesh dims, as (pod, data) splits a batch) and the rows
+    then laid out on the batch as the ids were."""
+    if not isinstance(tokens, DTensor):
+        return table[tokens]
+    x = table[replicated(tokens)]
+    return x.redistribute(x.device_mesh, [
+        Shard(0) if p.is_shard(0) else Replicate()
+        for p in tokens.placements])
+
+
+def on_replicas(f):
+    """``f`` for DTensor arguments it has no sharding rules for: each
+    DTensor argument replicated, ``f`` run on every rank's whole local
+    copy, its tensor results returned as replicated DTensors on the same
+    mesh (autograd passes through).  Without a DTensor argument ``f``
+    runs as it is."""
+    def run(*args):
+        flat, spec = torch.utils._pytree.tree_flatten(args)
+        mesh = next((a.device_mesh for a in flat if isinstance(a, DTensor)),
+                    None)
+        if mesh is None:
+            return f(*args)
+        local = [replicated(a).to_local() if isinstance(a, DTensor) else a
+                 for a in flat]
+        out = f(*torch.utils._pytree.tree_unflatten(local, spec))
+        rep = [Replicate()] * mesh.ndim
+        return torch.utils._pytree.tree_map(
+            lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
+            if isinstance(t, torch.Tensor) else t, out)
+    return run
+
+
+def write_slots_(slot: torch.Tensor, *writes) -> None:
+    """``buf[b, slot[b]] = value[b]`` for every lane b and every (buf,
+    value) pair of ``writes``, in place (a ring cache's write).  On a
+    DTensor each rank writes into its own shard: ``value`` and ``slot``
+    take the cache's layout, and where the slots (dim 1) are sharded
+    only the rank that holds a lane's slot changes it.  Data-independent
+    shapes throughout, so a trace on meta shards runs it."""
+    lanes = None
+    for buf, value in writes:
+        if isinstance(buf, DTensor):
+            _write_shard_(buf, slot, value)
+            continue
+        if lanes is None:
+            lanes = torch.arange(buf.shape[0], device=buf.device)
+        buf[lanes, slot] = value
+
+
+def _write_shard_(buf, slot, value) -> None:
+    mesh = buf.device_mesh
+    vpl, spl, off = [], [], 0
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(0):                       # lanes
+            vpl.append(Shard(0))
+            spl.append(Shard(0))
+        elif p.is_shard(1):                     # slots: one mesh dim only
+            if off:
+                raise NotImplementedError("slots sharded over two mesh dims")
+            off = mesh.get_local_rank(i) * -(-buf.shape[1] // mesh.size(i))
+            vpl.append(Replicate())
+            spl.append(Replicate())
+        elif p.is_shard():                      # a trailing dim of the slot
+            vpl.append(Shard(p.dim - 1))
+            spl.append(Replicate())
+        else:
+            vpl.append(Replicate())
+            spl.append(Replicate())
+    local = buf.to_local()
+    s = slot.redistribute(mesh, spl).to_local().long() - off
+    inside = (s >= 0) & (s < local.shape[1])
+    s = torch.where(inside, s, 0)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    cur = local[bidx, s]
+    v = value.redistribute(mesh, vpl).to_local() \
+        if isinstance(value, DTensor) else torch.full_like(cur, value)
+    keep = inside.reshape(-1, *([1] * (cur.dim() - 1)))
+    local[bidx, s] = torch.where(keep, v.to(cur.dtype), cur)
+
 
 # -- initialisers -------------------------------------------------------------
 
@@ -91,7 +221,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     (..., S) broadcastable against x's leading dims.  fp32 angles and a
     split-half rotation, cast back to x's dtype."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, device=x.device)             # (dh/2,)
+    freqs = const_like(x, rope_freqs(dh, theta, device=x.device))  # (dh/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (.., S, dh/2)
     if head_axis:
         angles = angles[..., None, :]                        # (.., S, 1, dh/2)
@@ -173,21 +303,24 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nb = -(-Skv // kv_block)
     pad = nb * kv_block - Skv
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_positions = F.pad(kv_positions, (0, pad), value=_PAD_POSITION)
+        k = pad_dim(k, 1, 0, pad)
+        v = pad_dim(v, 1, 0, pad)
+        kv_positions = pad_dim(kv_positions, 0, 0, pad, _PAD_POSITION)
         if kv_valid is None:
-            kv_valid = (torch.arange(nb * kv_block, device=dev) < Skv) \
-                .expand(B, nb * kv_block)
+            kv_valid = const_like(q, (torch.arange(
+                nb * kv_block, device=dev) < Skv).expand(B, nb * kv_block))
         else:
-            kv_valid = F.pad(kv_valid, (0, pad), value=False)
+            kv_valid = pad_dim(kv_valid, 1, 0, pad, False)
     elif kv_valid is None:
-        kv_valid = torch.ones((B, Skv), dtype=torch.bool, device=dev)
+        kv_valid = const_like(q, torch.ones((B, Skv), dtype=torch.bool,
+                                            device=dev))
     qp = q_positions.reshape(1, 1, Sq, 1, 1)
 
-    m = torch.full((B, Hkv, Sq, G), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hkv, Sq, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, Sq, G, dh), dtype=torch.float32, device=dev)
+    # the running statistics take qg's layout (zeros_like keeps a
+    # DTensor's placements)
+    acc = torch.zeros_like(qg.reshape(B, Hkv, Sq, G, dh))
+    m = torch.full_like(acc[..., 0], NEG_INF)
+    l = torch.zeros_like(m)
     for b in range(nb):
         blk = slice(b * kv_block, (b + 1) * kv_block)
         kb = k[:, blk].to(torch.float32).permute(0, 2, 3, 1)   # (B,Hkv,dh,t)
@@ -209,7 +342,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    # a dense copy before the reshape: a DTensor's global strides can call
+    # its permuted local shard contiguous, and the reshape would then view
+    # the shard where it must copy it
+    return out.permute(0, 2, 1, 3, 4) \
+        .clone(memory_format=torch.contiguous_format) \
+        .reshape(B, Sq, H, dh).to(q.dtype)
 
 
 # -- attention ----------------------------------------------------------------
@@ -225,10 +363,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, dh); caches (B, T, Hkv, dh); q_position (B,) absolute;
     kv_positions (B, T) absolute; kv_valid (B, T)."""
     B, _, H, dh = q.shape
-    out = ops.swa_attention_decode(q.reshape(B, H, dh), k_cache, v_cache,
-                                   kv_positions, kv_valid, q_position,
-                                   window=window)
+    q3 = q.reshape(B, H, dh)
+    args = (q3, k_cache, v_cache, kv_positions, kv_valid, q_position)
+    if isinstance(q, DTensor):
+        out, = local_map(
+            lambda *a: (_decode_shard(*a, window=window),),
+            **_decode_placements(q3, k_cache), redistribute_inputs=True,
+            device_mesh=q.device_mesh)(*args)
+    else:
+        out = ops.swa_attention_decode(*args, window=window)
     return out.reshape(B, 1, H, dh)
+
+
+def _decode_shard(*args, window):
+    """The decode attention on one rank's shards.  A dry-run traces on
+    meta shards (shapes only): there the plain version's ops stand for
+    the kernel's work; the kernel's dispatcher refuses meta tensors."""
+    if args[0].is_meta:
+        return ref.swa_attention_decode(*args, window)
+    return ops.swa_attention_decode(*args, window=window)
+
+
+def _decode_placements(q: torch.Tensor, k_cache: torch.Tensor) -> dict:
+    """The layout the decode kernel runs in on each rank: lanes split
+    where the cache splits them, heads where it splits its kv heads
+    (whole groups of G query heads with them), everything else whole
+    (a cache split along its slots is gathered)."""
+    mesh = k_cache.device_mesh
+    rep = Replicate()
+    qp, kp, bp = [], [], []          # q / out and K/V, positions and valid
+    for i, p in enumerate(k_cache.placements):
+        n = mesh.size(i)
+        if p.is_shard(0) and q.shape[0] % n == 0:
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+            bp.append(Shard(0))
+        elif p.is_shard(2) and k_cache.shape[2] % n == 0:
+            qp.append(Shard(1))
+            kp.append(Shard(2))
+            bp.append(rep)
+        else:
+            qp.append(rep)
+            kp.append(rep)
+            bp.append(rep)
+    qp, kp, bp = tuple(qp), tuple(kp), tuple(bp)
+    return {"in_placements": (qp, kp, kp, bp, bp, bp),
+            "out_placements": (qp,)}
 
 
 def attention_shapes(cfg: ModelConfig) -> dict:
@@ -260,7 +440,6 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     (B, T) absolute positions, "valid": (B, T), "index": (B,) ring write
     slot, "length": (B,) tokens seen}, updated in place.  Returns (out,
     cache)."""
-    B = x.shape[0]
     q = add_bias(_project(x, p["wq"]), p.get("bq"))
     k = add_bias(_project(x, p["wk"]), p.get("bk"))
     v = add_bias(_project(x, p["wv"]), p.get("bv"))
@@ -269,11 +448,8 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     T = cache["k"].shape[1]
     slot = cache["index"]                       # (B,)
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["pos"][bidx, slot] = pos
-    cache["valid"][bidx, slot] = True
+    write_slots_(slot, (cache["k"], k[:, 0]), (cache["v"], v[:, 0]),
+                 (cache["pos"], pos), (cache["valid"], True))
     out = decode_attention(q, cache["k"], cache["v"], q_position=pos,
                            kv_positions=cache["pos"], window=window,
                            kv_valid=cache["valid"])
@@ -357,7 +533,8 @@ def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q = add_bias(_project(x, p["wq"]), p.get("bq"))
     k = add_bias(_project(memory, p["wk"]), p.get("bk"))
     v = add_bias(_project(memory, p["wv"]), p.get("bv"))
-    pos = torch.zeros(max(Sq, Sm), dtype=torch.int32, device=x.device)
+    pos = const_like(x, torch.zeros(max(Sq, Sm), dtype=torch.int32,
+                                    device=x.device))
     out = blocked_attention(q, k, v, q_positions=pos[:Sq],
                             kv_positions=pos[:Sm], causal=False,
                             window=None, kv_block=kv_block)
@@ -393,7 +570,7 @@ def _mla_kv(cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tensor,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], rp)], dim=-1)
     if vd < nope + rp:
-        v = F.pad(v, (0, nope + rp - vd))
+        v = pad_dim(v, -1, 0, nope + rp - vd)
     return k, v
 
 
@@ -439,7 +616,6 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     ``absorb=True``: ``w_uk`` folded into the query and ``w_uv`` into the
     output, attention in the latent space, in plain PyTorch as in the
     JAX package (scores in x's dtype, divided, then cast to fp32)."""
-    B = x.shape[0]
     nope, rp, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                     cfg.v_head_dim)
     pos = cache["length"]
@@ -449,11 +625,9 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
                           head_axis=False)
     T = cache["c_kv"].shape[1]
     slot = cache["index"]
-    bidx = torch.arange(B, device=x.device)
-    cache["c_kv"][bidx, slot] = c_kv_t[:, 0]
-    cache["k_rope"][bidx, slot] = k_rope_t[:, 0]
-    cache["pos"][bidx, slot] = pos
-    cache["valid"][bidx, slot] = True
+    write_slots_(slot, (cache["c_kv"], c_kv_t[:, 0]),
+                 (cache["k_rope"], k_rope_t[:, 0]), (cache["pos"], pos),
+                 (cache["valid"], True))
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
 
     if absorb:

@@ -25,10 +25,15 @@ Homogeneous stacks are stacked along a leading layer axis, as JAX's
 a JAX parameter tree loads leaf for leaf; JAX's ``lax.scan`` over a
 stack is a Python loop over the layer index here.  With ``cfg.remat``
 the forward recomputes each scanned unit in the backward
-(``torch.utils.checkpoint``) where JAX wraps it in ``jax.checkpoint``; it
-leaves out JAX's sharding hooks (``constrain``, ``constrain_block_params``),
-which belong to the pod tooling.  The optimizer steps the leaves in
-JAX's flattening order (:func:`repro_torch.tree.tree_leaves`).
+(``torch.utils.checkpoint``) where JAX wraps it in ``jax.checkpoint``.
+The forward, loss and train step take JAX's sharding hooks
+(``constrain``, ``constrain_logits``, ``constrain_grads``,
+``constrain_block_params``), which :mod:`repro_torch.launch.steps` fills
+from the sharding rules; with DTensor leaves on a ``DeviceMesh`` every
+function here runs sharded (constants built inside take the input's
+mesh: :func:`repro_torch.models.layers.const_like`).  The optimizer
+steps the leaves in JAX's flattening order
+(:func:`repro_torch.tree.tree_leaves`).
 Caches are stacked the same way and updated in place (see
 :mod:`repro_torch.models.layers`).  A ``sliding_window`` config turns
 the ring buffers into the long-context variant.  Every decode attention
@@ -49,8 +54,9 @@ from repro_torch.tree import to_tensor, tree_leaves, tree_unflatten
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (_project, _unproject, add_bias, apply_rope, attention,
-                     attention_decode, blocked_attention, cross_attention,
-                     decode_attention, dense_init, init_attention,
+                     attention_decode, blocked_attention, const_like,
+                     cross_attention, decode_attention, dense_init,
+                     embed_lookup, init_attention,
                      init_cross_attention, init_kv_cache, init_mla,
                      init_mla_cache, init_mlp, mla_attention, mla_decode,
                      mlp, rms_norm)
@@ -321,8 +327,8 @@ def _encode(params: Params, cfg: ModelConfig,
     """Whisper's encoder over precomputed frame embeddings (B, Te, D):
     non-causal self-attention with rope at the frame positions."""
     enc = frames
-    enc_pos = torch.arange(enc.shape[1], dtype=torch.int32,
-                           device=enc.device)
+    enc_pos = const_like(enc, torch.arange(enc.shape[1], dtype=torch.int32,
+                                           device=enc.device))
     for lp in params["enc_blocks"]:
         a = lp["attn"]
         h = rms_norm(enc, lp["ln1"], cfg.norm_eps)
@@ -359,7 +365,8 @@ def _maybe_remat(f, cfg: ModelConfig):
 
 
 def forward(params: Params, cfg: ModelConfig, batch: dict, *,
-            window: Optional[int] = None
+            window: Optional[int] = None, constrain=None,
+            constrain_block_params=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (prefill, and training under autograd).
     batch: {"tokens": (B, S) integer ids, and for the VLM "vision":
@@ -368,14 +375,24 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
     summed aux loss, fp32 0-dim).  The units JAX scans under remat (a
     dense or MoE block of the stack, an SSM block, a hybrid block, a VLM
     super-block) go through :func:`_maybe_remat`; ``head_blocks`` and
-    Whisper's layer lists do not, as in JAX."""
+    Whisper's layer lists do not, as in JAX.
+
+    The sharding hooks, as in JAX (identity when None): ``constrain``
+    lays out the residual stream after the embedding and after each unit
+    of a stack; ``constrain_block_params`` lays out each layer's slice of
+    a stack (dense, MoE, SSM, hybrid) as the unit takes it, so that its
+    gradient comes back in that layout.  Both run inside the
+    recomputed unit."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens]
+    constrain = constrain or (lambda t: t)
+    cbp = constrain_block_params or (lambda t: t)
+    x = constrain(embed_lookup(params["embed"], tokens))
     dev = x.device
-    positions = torch.arange(S, dtype=torch.int32, device=dev)
-    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    positions = const_like(x, torch.arange(S, dtype=torch.int32, device=dev))
+    aux_total = const_like(x, torch.zeros((), dtype=torch.float32,
+                                          device=dev))
     fam = cfg.family
 
     if fam in ("dense", "moe"):
@@ -386,22 +403,23 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
                 aux_total = aux_total + aux
 
         def dense_blk(x, aux_total, lp):
-            x, aux = _dense_layer_fwd(lp, cfg, x, positions=positions,
+            x, aux = _dense_layer_fwd(cbp(lp), cfg, x, positions=positions,
                                       window=window)
-            return x, aux_total if aux is None else aux_total + aux
+            return constrain(x), \
+                aux_total if aux is None else aux_total + aux
 
         blk = _maybe_remat(dense_blk, cfg)
         for lp in _layers(params["blocks"]):
             x, aux_total = blk(x, aux_total, lp)
     elif fam == "ssm":
         blk = _maybe_remat(
-            lambda x, lp: _ssm_layer_fwd(lp, cfg, x), cfg)
+            lambda x, lp: constrain(_ssm_layer_fwd(cbp(lp), cfg, x)), cfg)
         for lp in _layers(params["blocks"]):
             x = blk(x, lp)
     elif fam == "hybrid":
         blk = _maybe_remat(
-            lambda x, lp: _hybrid_layer_fwd(lp, cfg, x, positions=positions,
-                                            window=window), cfg)
+            lambda x, lp: constrain(_hybrid_layer_fwd(
+                cbp(lp), cfg, x, positions=positions, window=window)), cfg)
         for lp in _layers(params["blocks"]):
             x = blk(x, lp)
     elif fam == "vlm":
@@ -416,7 +434,7 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
                 lp["cross"], cfg, h, memory)
             x, _ = _dense_layer_fwd(lp["tail"], cfg, x, positions=positions,
                                     window=window)
-            return x
+            return constrain(x)
 
         blk = _maybe_remat(super_blk, cfg)
         for lp in _layers(params["blocks"]):
@@ -441,15 +459,21 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
-            aux_weight: float = 0.01
+            aux_weight: float = 0.01, constrain=None, constrain_logits=None,
+            constrain_block_params=None
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy over ``batch["labels"]`` (B, S), labels
     < 0 masked out: the fp32 log-softmax's NLL summed over the kept
     labels and divided by max(their count, 1).  Returns (loss +
     aux_weight · aux, {"loss", "aux"}).  A masked label is clamped to
     class 0 before the gather (``torch.gather`` refuses −1, where JAX's
-    ``take_along_axis`` wraps it); the mask zeroes it either way."""
-    logits, aux = forward(params, cfg, batch)
+    ``take_along_axis`` wraps it); the mask zeroes it either way.
+    ``constrain_logits`` lays out the logits before the loss; the other
+    hooks go to :func:`forward`."""
+    logits, aux = forward(params, cfg, batch, constrain=constrain,
+                          constrain_block_params=constrain_block_params)
+    if constrain_logits is not None:
+        logits = constrain_logits(logits)
     labels = batch["labels"].to(torch.int64)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
@@ -458,13 +482,15 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
-def loss_and_grads(params: Params, cfg: ModelConfig, batch: dict
+def loss_and_grads(params: Params, cfg: ModelConfig, batch: dict, **hooks
                    ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """(total loss, {"loss", "aux"}, the gradient of every leaf in
     :func:`tree_leaves` order), all detached: ``jax.value_and_grad`` of
-    :func:`loss_fn` (a leaf the loss does not reach gets zeros)."""
+    :func:`loss_fn` (a leaf the loss does not reach gets zeros).
+    ``hooks``: :func:`loss_fn`'s sharding hooks."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    total, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    total, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch,
+                             **hooks)
     grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                 materialize_grads=True)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -472,7 +498,9 @@ def loss_and_grads(params: Params, cfg: ModelConfig, batch: dict
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
-                    accum_dtype: torch.dtype = torch.float32):
+                    constrain=None, constrain_logits=None,
+                    accum_dtype: torch.dtype = torch.float32,
+                    constrain_grads=None, constrain_block_params=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``, the state ``optimizer.init(tree_leaves(params))``
     (the optimizer steps the leaves in :func:`tree_leaves` order).
@@ -482,26 +510,35 @@ def make_train_step(cfg: ModelConfig, optimizer, *, microbatches: int = 1,
     + …)``), each slice's gradients are cast to ``accum_dtype`` and
     added, and gradients and metrics are divided by ``microbatches``, so
     activation memory scales with the slice.  Metrics are detached fp32
-    0-dim tensors."""
+    0-dim tensors.
+
+    The sharding hooks, as in JAX (identity when None): ``constrain``,
+    ``constrain_logits`` and ``constrain_block_params`` go to
+    :func:`loss_fn`; ``constrain_grads`` lays out each microbatch's
+    gradient list (in :func:`tree_leaves` order) before it is added."""
+    hooks = {"constrain": constrain, "constrain_logits": constrain_logits,
+             "constrain_block_params": constrain_block_params}
+    cg = constrain_grads or (lambda g: g)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
-            _, metrics, grads = loss_and_grads(params, cfg, batch)
+            _, metrics, grads = loss_and_grads(params, cfg, batch, **hooks)
+            grads = cg(grads)
         else:
             B = batch["tokens"].shape[0]
             if B % microbatches:
                 raise ValueError(f"a batch of {B} does not split into "
                                  f"{microbatches} microbatches")
             n = B // microbatches
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+            grads = [torch.zeros_like(p, dtype=accum_dtype)
                      for p in tree_leaves(params)]
-            dev = grads[0].device
-            metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
-                       for k in ("loss", "aux")}
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=grads[0].device)
+            metrics = {k: const_like(grads[0], zero) for k in ("loss", "aux")}
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                _, m, g = loss_and_grads(params, cfg, mb)
-                for acc, gi in zip(grads, g):
+                _, m, g = loss_and_grads(params, cfg, mb, **hooks)
+                for acc, gi in zip(grads, cg(g)):
                     acc.add_(gi.to(acc.dtype))
                 metrics = {k: metrics[k] + m[k] for k in metrics}
                 del g
@@ -589,13 +626,16 @@ def _cross_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     at 0, no window."""
     B, T = k_cache.shape[:2]
     q = add_bias(_project(x, p["wq"]), p.get("bq"))
+    dev = x.device
     out = decode_attention(
         q, k_cache, v_cache,
-        q_position=torch.zeros((B,), dtype=torch.int32, device=x.device),
-        kv_positions=torch.zeros((B, T), dtype=torch.int32,
-                                 device=x.device),
+        q_position=const_like(x, torch.zeros((B,), dtype=torch.int32,
+                                             device=dev)),
+        kv_positions=const_like(x, torch.zeros((B, T), dtype=torch.int32,
+                                               device=dev)),
         window=None,
-        kv_valid=torch.ones((B, T), dtype=torch.bool, device=x.device))
+        kv_valid=const_like(x, torch.ones((B, T), dtype=torch.bool,
+                                          device=dev)))
     return add_bias(_unproject(out, p["wo"]), p.get("bo"))
 
 
@@ -606,7 +646,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     device.  Returns (logits (B, 1, V), cache), the cache updated in
     place."""
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     fam = cfg.family
 
     if fam in ("dense", "moe"):

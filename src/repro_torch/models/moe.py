@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import dense_init, init_mlp, mlp, mlp_shapes
+from .layers import dense_init, init_mlp, mlp, mlp_shapes, on_replicas
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -97,7 +97,10 @@ def _dispatch(cfg: ModelConfig, xt: torch.Tensor, top_p: torch.Tensor,
     flat_p = top_p.reshape(TK).to(xt.dtype)
     order = torch.argsort(flat_e, stable=True)
     se, st, sp = flat_e[order], flat_t[order], flat_p[order]
-    counts = torch.bincount(se, minlength=E)
+    # bincount by a scatter: the same counts, and a shape that does not
+    # depend on the data (a dry-run traces it on meta tensors)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev) \
+        .scatter_add_(0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(TK, device=dev) - starts[se]
     keep = pos < C
@@ -131,44 +134,55 @@ def _combine(cfg: ModelConfig, expert_out: torch.Tensor, meta,
     return out
 
 
+def _dispatch_groups(router: torch.Tensor, xt: torch.Tensor,
+                     cfg: ModelConfig, G: int):
+    """Route and dispatch each of ``G`` token groups on its own, with
+    capacity C_g = ceil(T_g·k/E · capacity_factor): the (E, G·C_g, D)
+    buffers (every group's rows of an expert together), each group's
+    combine metadata and the groups' mean aux loss."""
+    E, K = cfg.num_experts, cfg.top_k
+    T, D = xt.shape
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    Tg = T // G
+    Cg = int(np.ceil(Tg * K / E * cfg.capacity_factor))
+    bufs, metas, auxs = [], [], []
+    for xg in xt.reshape(G, Tg, D):
+        top_p, top_e, aux_g = _route({"router": router}, cfg, xg)
+        buf, meta = _dispatch(cfg, xg, top_p, top_e, Cg)
+        bufs.append(buf)
+        metas.append(meta)
+        auxs.append(aux_g)
+    return (torch.stack(bufs, dim=1).reshape(E, G * Cg, D), metas,
+            torch.stack(auxs).mean())
+
+
+def _combine_groups(eo: torch.Tensor, metas: list,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Each group's tokens back from the (E, G·C_g, D) expert outputs."""
+    G = len(metas)
+    E, GC, D = eo.shape
+    eo = eo.reshape(E, G, GC // G, D)
+    Tg = metas[0][0].numel() // cfg.top_k
+    return torch.cat([_combine(cfg, eo[:, g], metas[g], Tg)
+                      for g in range(G)])
+
+
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out, aux_loss).
 
     ``cfg.moe_groups > 1`` splits the token stream into that many groups,
-    each routed, dispatched and combined on its own with capacity C_g =
-    ceil(T_g·k/E · capacity_factor); the expert products run over all
-    groups at once."""
+    each routed, dispatched and combined on its own; the expert products
+    run over all groups at once.  On DTensors the routing, dispatch and
+    combine (sorts, counts, index copies: ops DTensor has no sharding
+    rules for) run on every rank's replica of the token stream, and the
+    expert products on the experts' shards."""
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.top_k
-    T = B * S
-    xt = x.reshape(T, D)
-    G = max(1, cfg.moe_groups)
-
-    if G == 1:
-        top_p, top_e, aux = _route(p, cfg, xt)
-        C = int(np.ceil(T * K / E * cfg.capacity_factor))
-        buf, meta = _dispatch(cfg, xt, top_p, top_e, C)
-        out = _combine(cfg, _expert_ffn(p, cfg, buf), meta, T)
-    else:
-        if T % G:
-            raise ValueError(f"{T} tokens do not split into {G} groups")
-        Tg = T // G
-        Cg = int(np.ceil(Tg * K / E * cfg.capacity_factor))
-        bufs, metas, auxs = [], [], []
-        for xg in xt.reshape(G, Tg, D):
-            top_p, top_e, aux_g = _route(p, cfg, xg)
-            buf, meta = _dispatch(cfg, xg, top_p, top_e, Cg)
-            bufs.append(buf)
-            metas.append(meta)
-            auxs.append(aux_g)
-        aux = torch.stack(auxs).mean()
-        # (E, G·Cg, D): every group's rows of an expert in one product
-        xs = torch.stack(bufs, dim=1).reshape(E, G * Cg, D)
-        eo = _expert_ffn(p, cfg, xs).reshape(E, G, Cg, D)
-        out = torch.cat([_combine(cfg, eo[:, g], metas[g], Tg)
-                         for g in range(G)])
-
+    xt = x.reshape(B * S, D)
+    xs, metas, aux = on_replicas(_dispatch_groups)(
+        p["router"], xt, cfg, max(1, cfg.moe_groups))
+    out = on_replicas(_combine_groups)(_expert_ffn(p, cfg, xs), metas, cfg)
     if cfg.num_shared_experts:
         out = out + mlp(p["shared"], cfg, xt)
     return out.reshape(B, S, D), aux

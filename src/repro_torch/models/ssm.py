@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import dense_init, gated_rms_norm
+from .layers import const_like, dense_init, gated_rms_norm, pad_dim
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -74,7 +74,7 @@ def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
                  conv_b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv of width W, then SiLU.  x: (B, S, CH)."""
     W, S = conv_w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, W - 1, 0))
+    pad = pad_dim(x, 1, W - 1, 0)
     out = pad[:, 0:S] * conv_w[0]
     for i in range(1, W):
         out = out + pad[:, i: i + S] * conv_w[i]
@@ -87,8 +87,8 @@ def _segsum_decay(dA_chunk: torch.Tensor) -> torch.Tensor:
     Q = dA_chunk.shape[-2]
     cs = torch.cumsum(dA_chunk, dim=-2)
     diff = cs[..., :, None, :] - cs[..., None, :, :]
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                device=dA_chunk.device))
+    tri = const_like(dA_chunk, torch.tril(torch.ones(
+        (Q, Q), dtype=torch.bool, device=dA_chunk.device)))
     return torch.exp(torch.where(tri[..., None], diff, float("-inf")))
 
 
@@ -129,7 +129,7 @@ def ssd_scan(cfg: ModelConfig, xs: torch.Tensor, dt: torch.Tensor,
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(total[:, :, 0])              # (B, nc, H)
-    state = torch.zeros((B_, H, P, N), dtype=f32, device=xs.device) \
+    state = torch.zeros_like(chunk_states[:, 0]) \
         if init_state is None else init_state.to(f32)
     prev = []
     for c in range(nc):

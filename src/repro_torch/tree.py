@@ -28,21 +28,23 @@ def _children(tree) -> list | None:
     return None
 
 
-def _walk(tree, path: tuple):
+def _walk(tree, path: tuple, is_leaf=None):
     if tree is None:                   # a missing bias: no leaf, no path
         return
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) \
+        else _children(tree)
     if kids is None:
         yield path, tree
         return
     for key, child in kids:
-        yield from _walk(child, path + (key,))
+        yield from _walk(child, path + (key,), is_leaf)
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, is_leaf=None) -> list:
     """The leaves of a tree of dicts, lists, tuples and NamedTuples in
-    ``jax.tree_util.tree_flatten`` order; None is no leaf."""
-    return [leaf for _, leaf in _walk(tree, ())]
+    ``jax.tree_util.tree_flatten`` order; None is no leaf, and neither
+    is a node for which ``is_leaf`` is true taken apart."""
+    return [leaf for _, leaf in _walk(tree, (), is_leaf)]
 
 
 def tree_paths(tree) -> list[str]:
@@ -51,11 +53,11 @@ def tree_paths(tree) -> list[str]:
     return ["/".join(path) for path, _ in _walk(tree, ())]
 
 
-def tree_unflatten(like, leaves) -> Any:
+def tree_unflatten(like, leaves, is_leaf=None) -> Any:
     """``like``'s structure with its leaves replaced, in
     :func:`tree_leaves` order, by ``leaves``."""
     leaves = list(leaves)
-    want = len(tree_leaves(like))
+    want = len(tree_leaves(like, is_leaf))
     if len(leaves) != want:
         raise ValueError(f"{len(leaves)} leaves for a tree of {want}")
     it = iter(leaves)
@@ -63,6 +65,8 @@ def tree_unflatten(like, leaves) -> Any:
     def build(t):
         if t is None:
             return None
+        if is_leaf is not None and is_leaf(t):
+            return next(it)
         if isinstance(t, dict):
             new = {k: build(t[k]) for k in sorted(t)}
             return {k: new[k] for k in t}

@@ -903,3 +903,64 @@ def test_checkpoint_round_trip_of_bf16_leaves_on_the_card(cuda, tmp_path):
         assert b.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
     assert any(t.dtype == torch.bfloat16 for t in tree_leaves(got))
+
+
+def test_host_mesh_steps_on_the_card_equal_unsharded(cuda):
+    """``build_step`` on the host mesh, (data=1, model=1) over an NCCL
+    world of one (chip_smoke.py's phase 20a at the reduced smollm in
+    fp32): the train step (AdamW, 2 microbatches), the prefill and 4
+    decode steps equal the unsharded port on the card (parameters within
+    2·lr where a near-zero gradient's sign may flip, logits within 1e-5
+    of the largest); the sharded decode launches the decode attention
+    once a layer a step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step, make_optimizer
+
+    cfg = get_reduced("smollm-360m")
+    mesh = make_host_mesh("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+        B, S = 4, 64
+        batch = next(synthetic_batches(cfg, batch=B, seq=S, seed=0,
+                                       device=cuda))
+        train = build_step(cfg, InputShape("t", "train", S, B), mesh,
+                           microbatches=2)
+        opt = make_optimizer(train.cfg)
+        state = opt.init(tree_leaves(params))
+        p1, _, m1 = train.run(params, state, batch)
+        p0, _, m0 = lm.make_train_step(train.cfg, opt, microbatches=2)(
+            params, state, batch)
+        assert abs(float(m1["loss"].full_tensor()) - float(m0["loss"])) \
+            <= 1e-5 * max(1.0, abs(float(m0["loss"])))
+        for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+            assert float((a.full_tensor() - b).abs().max()) <= 2 * 3e-4
+        prefill = build_step(cfg, InputShape("t", "prefill", S, B), mesh)
+        fwd = {"tokens": batch["tokens"]}
+        l1 = prefill.run(params, fwd).full_tensor()
+        l0, _ = lm.forward(params, prefill.cfg, fwd)
+        assert float((l1 - l0).abs().max()) <= 1e-5 * float(
+            l0.abs().max())
+        decode = build_step(cfg, InputShape("t", "decode", S, B), mesh)
+        c1 = lm.init_cache(decode.cfg, B, S, device=cuda)
+        c0 = lm.init_cache(decode.cfg, B, S, device=cuda)
+        ops.reset_launch_counts()
+        got = []
+        for i in range(4):
+            lg, c1 = decode.run(params, batch["tokens"][:, i:i + 1], c1)
+            got.append(lg.full_tensor())
+        assert ops.launch_counts()["swa_attention_decode"] == \
+            4 * cfg.num_layers
+        for i, g in enumerate(got):
+            w, c0 = lm.decode_step(params, decode.cfg,
+                                   batch["tokens"][:, i:i + 1], c0)
+            assert float((g - w).abs().max()) <= 1e-5 * float(
+                w.abs().max())
+    finally:
+        dist.destroy_process_group()

@@ -16,7 +16,7 @@ from repro_torch.exchange import socket_transport, transport
 from repro_torch.fedsvc import coordinator, runtime, worker
 from repro_torch.gnnserve import engine
 from repro_torch.kernels import _build
-from repro_torch.launch import embed_server, gnn_serve, train
+from repro_torch.launch import embed_server, gnn_serve, mesh, train
 from repro_torch.models import gnn, layers, lm, moe, ssm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -69,6 +69,7 @@ def test_scan_catches_a_jax_import(tmp_path):
     gnn_serve.build_plane_from_cfg, moe.init_moe, ssm.init_ssm,
     ssm.init_ssm_cache, layers.init_mla_cache, pipeline.synthetic_batches,
     fedopt.FederatedLMTrainer.__init__, checkpoint.load_pytree,
+    mesh.make_host_mesh,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -103,6 +104,26 @@ def test_store_and_serving_launchers_default_to_the_card(tmp_path):
     for sub in ("graphs", "graphstore"):
         for p in (PORT / sub).glob("*.py"):
             assert "torch" not in {m for m, _ in _imported_roots(p)}, p
+
+
+def test_only_the_pod_clis_import_torch_testing():
+    """The ``fake`` process group lives in ``torch.testing._internal``:
+    only the dry-run and fedrun, which make their own fake worlds, may
+    import it (and must: the port has no other way to build one)."""
+    def imports_it(path):
+        for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""] \
+                if isinstance(node, ast.ImportFrom) else []
+            if any(n.startswith("torch.testing") for n in names):
+                return True
+        return False
+
+    users = {p.relative_to(ROOT).as_posix() for p in _port_files()
+             if imports_it(p)}
+    assert "src/repro_torch/launch/dryrun.py" in users
+    assert users <= {"src/repro_torch/launch/dryrun.py",
+                     "src/repro_torch/launch/fedrun.py"}, users
 
 
 def test_kernels_build_without_fast_math():
