@@ -300,6 +300,20 @@ Phases, each of which fails the run:
    1e-5 of the largest); the decode attention must launch 32 × 32 times
    in the sharded decode.  Then (b)'s and (c)'s records are read: ok on
    256 and 512 ranks, FLOPs and collective bytes counted.
+21. The port's lint and the four examples.  (a) ``python -m
+   repro_torch.launch.lint --format json`` over the repo, as a process
+   of its own beside (b) (this machine has no JAX): exit 0, no findings;
+   the files scanned, the pairs verified and its seconds.  (b) Each
+   ``examples/*_torch.py``'s ``main`` in this process, on the card, with
+   the launch counters zeroed before and read after and the CSR glue
+   failing the run: ``quickstart_torch`` at its defaults (reddit at
+   scale 0.3, 10 rounds, D, E and OPP: every loss finite; the paper's
+   ordering, D < E ≈ OPP in accuracy and OPP's rounds faster than E's,
+   printed and not held), ``train_federated_e2e_torch`` (products at
+   scale 0.4, 4 clients, E and OPG) at ``E2E_ROUNDS`` rounds, and
+   ``serve_llm_torch`` and ``federated_llm_torch`` at their defaults
+   (reduced configs): finite losses and tokens/s; each one's wall
+   seconds.
 
 Each kernel's row (and its other shapes) is then printed as in
 ``PERF.md`` §6: launches, ms, dev, plain, lib, bound and share.  The
@@ -318,6 +332,7 @@ import os
 import pathlib
 import socket
 import subprocess
+import importlib.util
 import sys
 import threading
 import time
@@ -4726,6 +4741,124 @@ def pod_phase(torch, np, card: str, root: pathlib.Path) -> tuple[dict, int]:
             "phase_s": time.perf_counter() - t0}, launches
 
 
+# -- phase 21: the port's lint and the four examples --------------------------
+
+E2E_ROUNDS = 10               # train_federated_e2e_torch's (cut from 30)
+#: the examples on the port and the arguments 21b gives each (none but
+#: the rounds: their defaults, on the card)
+EXAMPLES = (("quickstart_torch", []),
+            ("train_federated_e2e_torch", ["--rounds", str(E2E_ROUNDS)]),
+            ("serve_llm_torch", []),
+            ("federated_llm_torch", []))
+LINT_TIMEOUT = 300            # seconds for the lint's process
+
+
+def lint_run(root: pathlib.Path) -> dict:
+    """21a: ``python -m repro_torch.launch.lint --format json`` over the
+    repo at ``root``; it must exit 0 with no findings."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint", "--format",
+         "json"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=LINT_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"21a: the lint exited {proc.returncode}: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    check(out["findings"] == [], f"21a: lint findings {out['findings']}")
+    return {"exit_code": proc.returncode, "findings": 0,
+            "files_scanned": out["stats"]["files_scanned"],
+            "pairs_verified": len(out["stats"]["pairs_verified"]),
+            "seconds": seconds}
+
+
+def load_example(root: pathlib.Path, name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", root / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def finite(np, xs) -> bool:
+    return bool(len(xs)) and bool(np.isfinite(np.asarray(xs)).all())
+
+
+def example_summary(np, name: str, res) -> dict:
+    """21b: what one example returned, checked: finite losses (and
+    tokens/s) for every strategy, variant or architecture."""
+    if name in ("quickstart_torch", "train_federated_e2e_torch"):
+        want = ["D", "E", "OPP"] if name == "quickstart_torch" \
+            else ["E", "OPG"]
+        check(list(res) == want, f"21b: {name} ran {list(res)}")
+        out = {}
+        for strat, stats in res.items():
+            losses = [s.train_loss for s in stats]
+            check(finite(np, losses), f"21b: {name} {strat}: losses {losses}")
+            out[strat] = {
+                "rounds": len(stats),
+                "peak_accuracy": max(s.accuracy for s in stats),
+                "median_round_s": float(np.median(
+                    [s.round_time for s in stats])),
+                "final_loss": losses[-1]}
+        return out
+    if name == "serve_llm_torch":
+        check(len(res) == 3 and finite(np, list(res.values()))
+              and min(res.values()) > 0, f"21b: serve_llm tokens/s {res}")
+        return {"tokens_per_s": res}
+    check(list(res) == ["dense", "pruned", "stale"]
+          and all(finite(np, v) for v in res.values()),
+          f"21b: federated_llm losses {res}")
+    return {"losses": res}
+
+
+def examples_phase(torch, np, root: pathlib.Path) -> tuple[dict, dict]:
+    """21b: each example's ``main`` on the card, in this process, the
+    launch counters zeroed just before and read just after; returns (the
+    record, the launches)."""
+    from repro_torch.kernels import gnn_aggregate as agg_mod
+    from repro_torch.kernels import ops
+
+    out: dict = {}
+    glue: list = []
+    ops.reset_launch_counts()
+    with timed(agg_mod, "csr_from_edges", glue), \
+            timed(agg_mod, "transpose_csr", glue):
+        for name, args in EXAMPLES:
+            print(f"21b: {name} {' '.join(args)}", flush=True)
+            t0 = time.perf_counter()
+            res = load_example(root, name).main(list(args))
+            torch.cuda.synchronize()
+            out[name] = {"args": list(args),
+                         "wall_s": time.perf_counter() - t0,
+                         **example_summary(np, name, res)}
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not glue, f"21b: the CSR glue ran {len(glue)} times")
+    q = out["quickstart_torch"]
+    out["paper_ordering"] = {
+        "accuracy_D_below_E_and_OPP": q["D"]["peak_accuracy"]
+        < min(q["E"]["peak_accuracy"], q["OPP"]["peak_accuracy"]),
+        "accuracy_E_minus_OPP": q["E"]["peak_accuracy"]
+        - q["OPP"]["peak_accuracy"],
+        "round_OPP_faster_than_E": q["OPP"]["median_round_s"]
+        < q["E"]["median_round_s"]}
+    return out, counts
+
+
+def lint_and_examples_phase(torch, np, root: pathlib.Path
+                            ) -> tuple[dict, dict]:
+    """21: the lint's process runs beside the examples."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        linted = pool.submit(lint_run, root)
+        examples, counts = examples_phase(torch, np, root)
+        lint = linted.result()
+    return {"21a": lint, "21b": examples,
+            "phase_s": time.perf_counter() - t0}, counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SmokeFailure("chip_smoke.py takes no arguments")
@@ -4893,6 +5026,16 @@ def main() -> int:
         "cli_wall_s": pod["20bc"]["wall_s"]}
     print(f"20: pod tooling in {pod['phase_s']:.1f} s on {card}: "
           + json.dumps(summary), flush=True)
+    tail, examples_counts = lint_and_examples_phase(
+        torch, np, pathlib.Path(__file__).resolve().parent)
+    print("21a: " + json.dumps(tail["21a"]), flush=True)
+    print("21b: " + json.dumps(tail["21b"]), flush=True)
+    summary = {"lint_s": tail["21a"]["seconds"],
+               "files_scanned": tail["21a"]["files_scanned"],
+               "examples_wall_s": {n: r["wall_s"] for n, r in
+                                   tail["21b"].items() if "wall_s" in r}}
+    print(f"21: lint and examples in {tail['phase_s']:.1f} s on {card}: "
+          + json.dumps(summary), flush=True)
     for row in report:
         name = row["name"]
         row["launches_serve"] = res["launches"].get(name, 0)
@@ -4907,13 +5050,15 @@ def main() -> int:
         row["launches_zoo"] = zoo_counts.get(name, 0)
         row["launches_pod"] = pod_launches \
             if name == "swa_attention_decode" else 0
+        row["launches_examples"] = examples_counts.get(name, 0)
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_pull"] + row["launches_lm"]
                            + row["launches_sharded"] + row["launches_tcp"]
                            + row["launches_store"]
                            + row["launches_serve_tcp"]
                            + row["launches_growth"] + row["launches_zoo"]
-                           + row["launches_pod"])
+                           + row["launches_pod"]
+                           + row["launches_examples"])
         check(row["launches"] > 0, f"kernel {name} never launched on a path")
     print_rows(report)
     print(f"launches: serve {json.dumps(res['launches'])} train "
@@ -4922,8 +5067,8 @@ def main() -> int:
           f"tcp {json.dumps(tcp_counts)} store {json.dumps(store_counts)} "
           f"serve_tcp {json.dumps(serve_tcp_counts)} growth "
           f"{json.dumps(growth_counts)} zoo {json.dumps(zoo_counts)} pod "
-          f"{json.dumps({'swa_attention_decode': pod_launches})}",
-          flush=True)
+          f"{json.dumps({'swa_attention_decode': pod_launches})} examples "
+          f"{json.dumps(examples_counts)}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}), flush=True)

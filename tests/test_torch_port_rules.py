@@ -24,7 +24,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path):
@@ -43,6 +44,41 @@ def test_port_imports_neither_jax_nor_repro():
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_examples_on_the_port_are_scanned_and_default_to_the_card():
+    names = {p.name for p in _port_files() if p.parent.name == "examples"}
+    assert names == {"quickstart_torch.py", "train_federated_e2e_torch.py",
+                     "serve_llm_torch.py", "federated_llm_torch.py"}
+    for name in names:                       # the card unless asked
+        src = (ROOT / "examples" / name).read_text(encoding="utf-8")
+        assert 'ap.add_argument("--device", default="cuda")' in src, name
+
+
+def test_the_analyzer_and_lint_import_only_the_stdlib():
+    """``repro_torch.analysis`` and ``repro_torch.launch.lint`` run in a
+    bare container: absolute imports of the stdlib and of
+    ``repro_torch.analysis`` only (the package's own modules import each
+    other relatively), no torch or numpy."""
+    import sys
+
+    files = sorted((PORT / "analysis").glob("*.py")) \
+        + [PORT / "launch" / "lint.py"]
+    assert len(files) == 7
+    bad = []
+    for p in files:
+        for node in ast.walk(ast.parse(p.read_text(encoding="utf-8"))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] not in sys.stdlib_module_names \
+                        and n != "repro_torch.analysis":
+                    bad.append(f"{p.relative_to(ROOT)}:{node.lineno} {n}")
     assert not bad, bad
 
 
