@@ -1,0 +1,9 @@
+"""The aggregation kernels' (rows 5 and 5b) share of their roofline over
+the window's launches: compulsory bytes at the card's memory rate over
+their device time."""
+
+from perfbench.metrics._read import AGG_KERNELS, roofline
+
+
+def read(rec):
+    return roofline(rec, "agg_bytes", AGG_KERNELS)

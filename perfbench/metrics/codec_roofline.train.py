@@ -1,0 +1,8 @@
+"""The int8 codec kernels' (rows 1–4: encode, decode, gather-encode,
+decode-scatter) share of their roofline over the window's launches."""
+
+from perfbench.metrics._read import CODEC_KERNELS, roofline
+
+
+def read(rec):
+    return roofline(rec, "codec_bytes", CODEC_KERNELS)

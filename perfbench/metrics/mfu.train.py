@@ -1,0 +1,8 @@
+"""The whole training step's share of the card's float32 peak: model
+FLOPs of the window's minibatches over the wall time of its rounds."""
+
+from perfbench.metrics._read import mfu, rounds_seconds
+
+
+def read(rec):
+    return mfu(rec, rounds_seconds(rec))

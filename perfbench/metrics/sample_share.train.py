@@ -1,0 +1,8 @@
+"""Host sampling (``graphs/sampler.py`` ``NeighborSampler``, the cut
+epochs' iteration) as a share of the window's rounds."""
+
+from perfbench.metrics._read import region_seconds, rounds_seconds, share
+
+
+def read(rec):
+    return share(region_seconds(rec, "sample"), rounds_seconds(rec))
