@@ -39,7 +39,12 @@ fields of a Strategy (``aggregation``, ``weight_codec``,
 coordinator and workers (:mod:`repro_torch.fedsvc`) read them.  It
 records the JAX trainer's trace spans (``client.pull``, ``client.train_epoch``,
 ``client.push_compute``, ``round.aggregate``) on
-:data:`repro_torch.obsv.trace.TRACE`.  Its models are
+:data:`repro_torch.obsv.trace.TRACE`, and the port's own: ``step.copy``,
+``step.forward``, ``step.backward`` and ``step.optim`` for each
+minibatch inside ``client.train_epoch`` (in the recorder's fine ring), and ``client.push_apply``
+around each push's apply.  ``client.pull``, ``client.push_compute`` and
+``client.push_apply`` synchronise the device at both ends while
+recording, so they hold their device work.  Its models are
 :class:`repro_torch.models.gnn.GNN` modules; FedAvg runs over their
 leaves in the JAX package's order, so either trainer can start from the
 other's parameters.
@@ -177,6 +182,14 @@ def export_for_serving(model: GNN, shards: list[ClientShard],
 
 @dataclasses.dataclass
 class PhaseTimes:
+    """One client's (or a round's, max over clients) phase seconds.
+
+    Measured on the host clock: ``train`` (sampling and the local
+    epochs, each epoch ending in a synchronise), ``push_compute`` (the
+    push vertices' propagate, ending in a synchronise) and the wall part
+    of ``agg`` (FedAvg and the evaluation).  Modelled by the network
+    model: ``pull``, ``dynamic_pull``, ``push_transfer`` and the
+    model-transfer term of ``agg``."""
     pull: float = 0.0
     train: float = 0.0
     dynamic_pull: float = 0.0   # §4.3 on-demand pulls
@@ -608,7 +621,8 @@ class FederatedGNNTrainer:
         if self.exchange is None or len(sh.pull_nodes) == 0:
             return
         with TRACE.span("client.pull", args={"client": ci,
-                                             "rows": len(sh.pull_nodes)}):
+                                             "rows": len(sh.pull_nodes)},
+                        sync=self._sync):
             self._caches[ci] = fill_cache(self.ex_clients[ci], sh, self.L)
 
     def _pull_time(self, ci: int, minibatches: list[MiniBatch]
@@ -649,7 +663,10 @@ class FederatedGNNTrainer:
         sh = self.shards[ci]
         if self.exchange is None or len(sh.push_nodes) == 0:
             return None, 0.0, 0.0
-        with TRACE.span("client.push_compute", args={"client": ci}):
+        # synchronised while recording, the span also holds the device
+        # work plan_push enqueues (the codec's encode)
+        with TRACE.span("client.push_compute", args={"client": ci},
+                        sync=self._sync):
             t0 = time.perf_counter()
             outs = params.full_propagate(self.shard_arrays[ci],
                                          self._caches[ci])
@@ -708,14 +725,21 @@ class FederatedGNNTrainer:
             self._caches[ci]
         leaves = params.leaves()
         losses = []
+        # spans without args and unsynchronised: no dict or span object
+        # per minibatch while the recorder is off, and no device wait;
+        # fine, so their rate cannot push the round's spans out of the ring
         for mb in batches:
-            batch = blocks_to_arrays(mb, self.device)
-            loss = loss_fn(params, batch, feats, caches, labels)
-            grads = torch.autograd.grad(loss, leaves)
-            new, opt_state = self.opt.step(leaves, grads, opt_state)
-            with torch.no_grad():
-                for p, v in zip(leaves, new):
-                    p.copy_(v)
+            with TRACE.span("step.copy", fine=True):
+                batch = blocks_to_arrays(mb, self.device)
+            with TRACE.span("step.forward", fine=True):
+                loss = loss_fn(params, batch, feats, caches, labels)
+            with TRACE.span("step.backward", fine=True):
+                grads = torch.autograd.grad(loss, leaves)
+            with TRACE.span("step.optim", fine=True):
+                new, opt_state = self.opt.step(leaves, grads, opt_state)
+                with torch.no_grad():
+                    for p, v in zip(leaves, new):
+                        p.copy_(v)
             losses.append(loss.detach())
         return params, opt_state, losses
 
@@ -808,7 +832,8 @@ class FederatedGNNTrainer:
         # within the round) — apply the planned pushes now.
         for res in results:
             if res.push_plan is not None:
-                self.ex_clients[res.client_id].apply_push(res.push_plan)
+                with TRACE.span("client.push_apply", sync=self._sync):
+                    self.ex_clients[res.client_id].apply_push(res.push_plan)
         t0 = time.perf_counter()
         with TRACE.span("round.aggregate", args={"round": round_idx}):
             acc = self.aggregate(results)

@@ -15,6 +15,11 @@ A block's destination nodes are a prefix of its source nodes.  Blocks
 are padded to static sizes (shared with the serving engine's planner);
 remote destination rows are not computed by the GNN layer but read from
 the client's embedding cache.  Sampling runs on the host in numpy.
+
+Each minibatch records the port's spans ``sampler.batch`` (the whole of
+:meth:`NeighborSampler.sample_batch`) and ``sampler.draw`` (its hop
+loop) in the fine ring of :data:`repro_torch.obsv.trace.TRACE`; the JAX
+sampler records none.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+
+from repro_torch.obsv.trace import TRACE
 
 from .partition import ClientShard
 
@@ -126,64 +133,74 @@ class NeighborSampler:
         return np.concatenate(srcs), np.concatenate(dsts)
 
     def sample_batch(self, seeds: np.ndarray) -> MiniBatch:
-        sh, L = self.shard, self.L
-        layers: list[np.ndarray] = [np.asarray(seeds, dtype=np.int64)]
-        layer_edges: list[tuple[np.ndarray, np.ndarray]] = []
-        for hop in range(1, L + 1):
-            cur = layers[-1]
-            e_src, e_dst = self._sample_neighbors(cur, local_only=(hop == L))
-            new = np.setdiff1d(np.unique(e_src), cur)
-            layers.append(np.concatenate([cur, new]))   # dst-prefix ordering
-            layer_edges.append((e_src, e_dst))
+        # spans without args: no dict or span object per minibatch while
+        # the recorder is off; the blocks' share is batch minus draw
+        with TRACE.span("sampler.batch", fine=True):
+            sh, L = self.shard, self.L
+            layers: list[np.ndarray] = [np.asarray(seeds, dtype=np.int64)]
+            layer_edges: list[tuple[np.ndarray, np.ndarray]] = []
+            with TRACE.span("sampler.draw", fine=True):
+                for hop in range(1, L + 1):
+                    cur = layers[-1]
+                    e_src, e_dst = self._sample_neighbors(
+                        cur, local_only=(hop == L))
+                    new = np.setdiff1d(np.unique(e_src), cur)
+                    # dst-prefix ordering
+                    layers.append(np.concatenate([cur, new]))
+                    layer_edges.append((e_src, e_dst))
 
-        blocks: list[Block] = []
-        remote_used: list[np.ndarray] = []
-        # GNN layer l (1-indexed) consumes node set layers[L-l+1], produces
-        # layers[L-l]; edges are layer_edges[L-l].
-        for l in range(1, L + 1):
-            src_nodes = layers[L - l + 1]
-            dst_nodes = layers[L - l]
-            e_src, e_dst = layer_edges[L - l]
-            pos = {int(u): i for i, u in enumerate(src_nodes)}
-            es = np.fromiter((pos[int(u)] for u in e_src), dtype=np.int64,
-                             count=len(e_src))
-            ed = np.fromiter((pos[int(u)] for u in e_dst), dtype=np.int64,
-                             count=len(e_dst))
-            p_src = self._p_nodes[L - l + 1]
-            p_dst = self._p_nodes[L - l]
-            p_e = self._p_edges[L - l]
-            remote = dst_nodes >= sh.num_local
-            slot = np.where(remote, dst_nodes - sh.num_local, 0)
-            blocks.append(Block(
-                src_ids=_pad_to(src_nodes, p_src),
-                n_src=len(src_nodes),
-                n_dst=len(dst_nodes),
-                edge_src=_pad_to(es, p_e),
-                edge_dst=_pad_to(ed, p_e),
-                edge_mask=_pad_to(np.ones(len(es), bool), p_e, False),
-                dst_remote_mask=_pad_to(remote, p_dst, False),
-                dst_remote_slot=_pad_to(slot.astype(np.int32), p_dst),
-                dst_mask=_pad_to(np.ones(len(dst_nodes), bool), p_dst, False),
-            ))
-            if l < L:   # layer l output = h^l; remote rows read cache[l]
-                remote_used.append(np.unique(slot[remote]).astype(np.int64))
+            blocks: list[Block] = []
+            remote_used: list[np.ndarray] = []
+            # GNN layer l (1-indexed) consumes node set layers[L-l+1],
+            # produces layers[L-l]; edges are layer_edges[L-l].
+            for l in range(1, L + 1):
+                src_nodes = layers[L - l + 1]
+                dst_nodes = layers[L - l]
+                e_src, e_dst = layer_edges[L - l]
+                pos = {int(u): i for i, u in enumerate(src_nodes)}
+                es = np.fromiter((pos[int(u)] for u in e_src),
+                                 dtype=np.int64, count=len(e_src))
+                ed = np.fromiter((pos[int(u)] for u in e_dst),
+                                 dtype=np.int64, count=len(e_dst))
+                p_src = self._p_nodes[L - l + 1]
+                p_dst = self._p_nodes[L - l]
+                p_e = self._p_edges[L - l]
+                remote = dst_nodes >= sh.num_local
+                slot = np.where(remote, dst_nodes - sh.num_local, 0)
+                blocks.append(Block(
+                    src_ids=_pad_to(src_nodes, p_src),
+                    n_src=len(src_nodes),
+                    n_dst=len(dst_nodes),
+                    edge_src=_pad_to(es, p_e),
+                    edge_dst=_pad_to(ed, p_e),
+                    edge_mask=_pad_to(np.ones(len(es), bool), p_e, False),
+                    dst_remote_mask=_pad_to(remote, p_dst, False),
+                    dst_remote_slot=_pad_to(slot.astype(np.int32), p_dst),
+                    dst_mask=_pad_to(np.ones(len(dst_nodes), bool), p_dst,
+                                     False),
+                ))
+                if l < L:   # layer l output = h^l; remote rows read cache[l]
+                    remote_used.append(
+                        np.unique(slot[remote]).astype(np.int64))
 
-        p_seed = self._p_nodes[0]
-        # Rule 3: h^0 (features) are never aggregated for remote vertices —
-        # the first block's edge sources must all be local.  (The cumulative
-        # src node set MAY contain remote nodes from earlier hops; their
-        # feature rows are never read as edge sources and their outputs are
-        # overwritten from the embedding cache.)
-        b0 = blocks[0]
-        src_of_edges = b0.src_ids[b0.edge_src[b0.edge_mask]]
-        assert np.all(src_of_edges < sh.num_local)
-        return MiniBatch(
-            blocks=blocks,
-            seeds=_pad_to(layers[0], p_seed),
-            seed_mask=_pad_to(np.ones(len(layers[0]), bool), p_seed, False),
-            input_ids=blocks[0].src_ids,
-            remote_slots_used=remote_used,
-        )
+            p_seed = self._p_nodes[0]
+            # Rule 3: h^0 (features) are never aggregated for remote
+            # vertices — the first block's edge sources must all be local.
+            # (The cumulative src node set MAY contain remote nodes from
+            # earlier hops; their feature rows are never read as edge
+            # sources and their outputs are overwritten from the embedding
+            # cache.)
+            b0 = blocks[0]
+            src_of_edges = b0.src_ids[b0.edge_src[b0.edge_mask]]
+            assert np.all(src_of_edges < sh.num_local)
+            return MiniBatch(
+                blocks=blocks,
+                seeds=_pad_to(layers[0], p_seed),
+                seed_mask=_pad_to(np.ones(len(layers[0]), bool), p_seed,
+                                  False),
+                input_ids=blocks[0].src_ids,
+                remote_slots_used=remote_used,
+            )
 
     def epoch(self, *, shuffle: bool = True) -> Iterator[MiniBatch]:
         order = self._train.copy()

@@ -18,6 +18,16 @@ per round by the worker instead of threading a round index through
 every call site).  Events live in a bounded ring buffer — a long run
 keeps the most recent window instead of growing without bound.
 
+The port adds three things, none of them in :meth:`TraceRecorder.snapshot`,
+whose format stays the JAX package's.  A span given ``fine=True`` (the
+sampler's and the training step's, several per minibatch) goes to a ring
+of its own, so their rate cannot push the round-level spans out of
+``events``.  ``dropped`` counts what either full ring pushed out, and a
+snapshot taken after a drop says so on stderr: the trace then lacks its
+oldest spans.  A span given ``sync`` (a device synchronise) calls it at
+both ends while recording, so its duration covers the device work
+enqueued inside it.
+
 Disabled is the default and costs (almost) nothing: ``span()`` returns
 a shared no-op context manager — one attribute check, zero allocation —
 so instrumentation can stay in hot paths permanently.  Enable with
@@ -39,11 +49,13 @@ from __future__ import annotations
 
 import collections
 import functools
+import heapq
 import json
 import os
+import sys
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 _perf = time.perf_counter
 
@@ -64,32 +76,45 @@ NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("_rec", "name", "cat", "args", "_t0")
+    __slots__ = ("_rec", "name", "cat", "args", "_sync", "_ring", "_t0")
 
     def __init__(self, rec: "TraceRecorder", name: str, cat: str,
-                 args: Optional[dict]):
+                 args: Optional[dict], sync: Optional[Callable[[], None]],
+                 ring: collections.deque):
         self._rec = rec
         self.name = name
         self.cat = cat
         self.args = args
+        self._sync = sync
+        self._ring = ring
 
     def __enter__(self):
+        if self._sync is not None:
+            self._sync()
         self._t0 = _perf()
         return self
 
     def __exit__(self, *exc):
+        if self._sync is not None:
+            self._sync()
         t0 = self._t0
+        dur = _perf() - t0
         rec = self._rec
         args = self.args
         if rec.context:
             args = {**rec.context, **(args or {})}
-        rec.events.append((self.name, self.cat,
-                           threading.get_ident(), t0, _perf() - t0, args))
+        rec._append(self._ring, (self.name, self.cat, threading.get_ident(),
+                                 t0, dur, args))
         return False
 
 
-#: default ring capacity: ~100 B/event → a few MB worst case.
-DEFAULT_CAPACITY = 65536
+#: default capacity of each ring: ~100 B/event → some 25 MB worst case
+#: a ring, taken only as it fills.  The round-level spans make ~21
+#: events a round, so ``events`` holds some 12,000 rounds.  The fine
+#: spans make 6 a minibatch: a full-epoch reddit round (4 clients × 3
+#: epochs × ~600 minibatches) makes ~43,000, so ``fine_events`` holds
+#: its last ~6 such rounds.
+DEFAULT_CAPACITY = 1 << 18
 
 
 class TraceRecorder:
@@ -99,8 +124,13 @@ class TraceRecorder:
                  process: str | None = None):
         self.enabled = False
         self.events: collections.deque = collections.deque(maxlen=capacity)
+        #: the ``fine=True`` spans, in a ring of the same capacity
+        self.fine_events: collections.deque = collections.deque(
+            maxlen=capacity)
         self.context: dict = {}          # tags merged into every span
         self.process = process or "proc"
+        #: events the full rings pushed out since they were last emptied
+        self.dropped = 0
 
     # -- switches ----------------------------------------------------------
 
@@ -112,6 +142,8 @@ class TraceRecorder:
 
     def clear(self) -> None:
         self.events.clear()
+        self.fine_events.clear()
+        self.dropped = 0
 
     def set_process(self, label: str) -> None:
         self.process = str(label)
@@ -128,14 +160,26 @@ class TraceRecorder:
     # -- recording ---------------------------------------------------------
 
     def span(self, name: str, cat: str = "",
-             args: Optional[dict] = None):
+             args: Optional[dict] = None,
+             sync: Optional[Callable[[], None]] = None,
+             fine: bool = False):
         """Context manager for one span.  Disabled ⇒ the shared no-op
         (zero allocation — which is why tags travel via the ``args``
         dict parameter rather than ``**kwargs``: no-kwarg calls must
-        not build a dict either)."""
+        not build a dict either), and ``sync`` is never called.
+        Enabled, ``sync`` (e.g. a device synchronise) runs before the
+        start stamp and before the end stamp, so the span holds the
+        device work enqueued inside it and none from before it, and a
+        ``fine`` span goes to :attr:`fine_events`."""
         if not self.enabled:
             return NOOP_SPAN
-        return _Span(self, name, cat, args)
+        return _Span(self, name, cat, args, sync,
+                     self.fine_events if fine else self.events)
+
+    def _append(self, ring: collections.deque, event: tuple) -> None:
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+        ring.append(event)
 
     def instant(self, name: str, cat: str = "",
                 args: Optional[dict] = None) -> None:
@@ -144,18 +188,23 @@ class TraceRecorder:
             return
         if self.context:
             args = {**self.context, **(args or {})}
-        self.events.append((name, cat, threading.get_ident(),
-                            _perf(), 0.0, args))
+        self._append(self.events,
+                     (name, cat, threading.get_ident(), _perf(), 0.0, args))
 
     # -- export ------------------------------------------------------------
 
     def snapshot(self, clear: bool = False) -> dict:
         """JSON-able dump for the wire: raw ``perf_counter`` seconds
         (this process's clock — the scraper aligns), plus the identity
-        and the clock reading the offset handshake needs."""
-        events = [list(e) for e in self.events]
+        and the clock reading the offset handshake needs.  Both rings'
+        events, in the order they ended."""
+        if self.dropped:
+            print(f"trace: the rings dropped {self.dropped} events; the "
+                  f"trace lacks its oldest spans", file=sys.stderr)
+        events = [list(e) for e in heapq.merge(
+            self.events, self.fine_events, key=lambda e: e[3] + e[4])]
         if clear:
-            self.events.clear()
+            self.clear()
         return {"process": self.process, "pid": os.getpid(),
                 "t_mono": _perf(), "events": events}
 

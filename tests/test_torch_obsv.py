@@ -184,6 +184,79 @@ def test_traced_records_on_the_global_recorder():
         rec.clear()
 
 
+def test_span_sync_runs_only_while_recording(monkeypatch):
+    """Off, a span given ``sync`` never calls it; on, it calls it once
+    before the start stamp and once inside the recorded duration."""
+    clock = _Clock()
+    monkeypatch.setattr(ttrace, "_perf", clock)
+    rec = ttrace.TraceRecorder(capacity=4)
+    stamps = []
+
+    def sync():
+        stamps.append(clock())
+
+    with rec.span("x.off", sync=sync) as sp:
+        assert sp is ttrace.NOOP_SPAN
+    assert stamps == [] and not rec.events
+    rec.enable()
+    with rec.span("client.pull", sync=sync):
+        assert len(stamps) == 1
+    (name, _, _, t0, dur, _), = rec.events
+    assert name == "client.pull" and len(stamps) == 2
+    assert stamps[0] < t0 < stamps[1] < t0 + dur
+
+
+def test_ring_counts_what_it_drops(capsys):
+    rec = ttrace.TraceRecorder(capacity=4)
+    rec.enable()
+    for _ in range(7):
+        with rec.span("step.copy"):
+            pass
+    rec.instant("x.mark")
+    assert len(rec.events) == 4 and rec.dropped == 4
+    snap = rec.snapshot()
+    assert set(snap) == {"process", "pid", "t_mono", "events"}
+    assert "dropped 4 events" in capsys.readouterr().err
+    rec.clear()
+    assert rec.dropped == 0 and not rec.events
+    with rec.span("step.copy"):
+        pass
+    assert rec.dropped == 0
+    rec.snapshot(clear=True)
+    assert capsys.readouterr().err == ""
+    assert ttrace.DEFAULT_CAPACITY == 1 << 18
+    assert ttrace.TRACE.events.maxlen == 1 << 18
+    assert ttrace.TRACE.fine_events.maxlen == 1 << 18
+
+
+def test_fine_spans_keep_a_ring_of_their_own(monkeypatch, capsys):
+    """Fine spans fill their own ring and push out none of the round's
+    spans; a snapshot holds both rings' events in the order they ended,
+    and a snapshot after a drop says so on stderr."""
+    monkeypatch.setattr(ttrace, "_perf", _Clock())
+    rec = ttrace.TraceRecorder(capacity=4)
+    rec.enable()
+    with rec.span("client.train_epoch"):
+        for _ in range(3):
+            with rec.span("step.copy", fine=True):
+                pass
+    for _ in range(3):
+        with rec.span("sampler.batch", fine=True):
+            pass
+    assert [e[0] for e in rec.events] == ["client.train_epoch"]
+    assert [e[0] for e in rec.fine_events] == ["step.copy"] + [
+        "sampler.batch"] * 3
+    assert rec.dropped == 2
+    events = rec.snapshot(clear=True)["events"]
+    assert [e[0] for e in events] == ["step.copy", "client.train_epoch",
+                                      "sampler.batch", "sampler.batch",
+                                      "sampler.batch"]
+    ends = [e[3] + e[4] for e in events]
+    assert ends == sorted(ends)
+    assert "dropped 2 events" in capsys.readouterr().err
+    assert not rec.events and not rec.fine_events and rec.dropped == 0
+
+
 @pytest.mark.parametrize("value,enabled", [("1", True), ("0", False),
                                            ("", False)])
 def test_repro_trace_switch(value, enabled):
@@ -220,7 +293,7 @@ def traced_pair():
         rec.enable()
         try:
             tr.train(2)
-            events[name] = list(rec.events)
+            events[name] = [tuple(e) for e in rec.snapshot()["events"]]
         finally:
             rec.enabled = was
             rec.context.clear()
@@ -229,9 +302,17 @@ def traced_pair():
     return jt, tt, events
 
 
+#: the spans both trainers record; the port's sampler, step and push
+#: apply spans are its own
+JAX_SPANS = {"client.pull", "client.train_epoch", "client.push_compute",
+             "round.aggregate"}
+
+
 def test_span_sequence_matches_jax(traced_pair):
-    _, _, events = traced_pair
-    seq = {k: [(e[0], e[5]) for e in v] for k, v in events.items()}
+    _, tt, events = traced_pair
+    assert {e[0] for e in events["jax"]} == JAX_SPANS
+    seq = {k: [(e[0], e[5]) for e in v if e[0] in JAX_SPANS]
+           for k, v in events.items()}
     assert seq["port"] == seq["jax"]
     names = [n for n, _ in seq["port"]]
     assert names.count("client.pull") == 2 * 2
@@ -242,6 +323,76 @@ def test_span_sequence_matches_jax(traced_pair):
     assert names[:4] == ["client.pull", "client.train_epoch",
                          "client.push_compute", "client.train_epoch"]
     assert all(e[4] >= 0.0 for e in events["port"])
+    # the port's own spans: one of each per minibatch trained, and a
+    # push apply per client and round
+    port = [e[0] for e in events["port"]]
+    steps = 2 * 2 * sum(tt.samplers[ci].num_batches() for ci in range(2))
+    for name in ("sampler.batch", "sampler.draw", "step.copy",
+                 "step.forward", "step.backward", "step.optim"):
+        assert port.count(name) == steps, name
+    assert port.count("client.push_apply") == 2 * 2
+    assert set(port) == JAX_SPANS | {
+        "sampler.batch", "sampler.draw", "step.copy", "step.forward",
+        "step.backward", "step.optim", "client.push_apply"}
+
+    def within(name, parent):
+        """How many spans ``parent`` each span ``name`` lies inside."""
+        outer = [(e[3], e[3] + e[4]) for e in events["port"]
+                 if e[0] == parent]
+        return [sum(a <= e[3] and e[3] + e[4] <= b for a, b in outer)
+                for e in events["port"] if e[0] == name]
+
+    assert set(within("sampler.draw", "sampler.batch")) == {1}
+    for name in ("sampler.batch", "sampler.draw"):
+        assert set(within(name, "client.train_epoch")) == {0}
+    for name in ("step.copy", "step.forward", "step.backward", "step.optim"):
+        assert set(within(name, "client.train_epoch")) == {1}
+    assert set(within("client.push_apply", "client.train_epoch")) == {0}
+
+
+def test_untraced_round_adds_no_sync_and_no_span(monkeypatch):
+    """With the recorder off a round synchronises where it always did
+    (each epoch's end and each push compute) and the sampler and the
+    step get the shared no-op span, with no args dict, for every
+    minibatch; on, the pull, the push compute and the push apply each
+    synchronise at both ends."""
+    kw = dict(num_layers=3, hidden=16, seed=0, epochs_per_round=2)
+    tt = TTrainer(tmake_graph("arxiv", scale=0.1, seed=7), 2,
+                  dataclasses.replace(tstrategies()["O"], codec="int8"),
+                  device="cpu", **kw)
+    syncs = []
+    monkeypatch.setattr(tt, "_sync", lambda: syncs.append(1))
+    rec = ttrace.TRACE
+    opened = []
+    span = ttrace.TraceRecorder.span
+
+    def spy(self, name, cat="", args=None, sync=None, fine=False):
+        out = span(self, name, cat, args, sync, fine)
+        opened.append((name, args, out))
+        return out
+
+    monkeypatch.setattr(ttrace.TraceRecorder, "span", spy)
+    was = rec.enabled
+    rec.disable()
+    try:
+        with monkeypatch.context() as m:
+            # an enabled span would build one of these
+            m.setattr(ttrace, "_Span", None)
+            tt.run_round(0, 0.0)
+        assert len(syncs) == 2 * (2 + 1)
+        mine = [(a, out) for n, a, out in opened
+                if n.startswith(("sampler.", "step."))]
+        steps = 2 * sum(tt.samplers[ci].num_batches() for ci in range(2))
+        assert len(mine) == 6 * steps
+        assert all(a is None and out is ttrace.NOOP_SPAN for a, out in mine)
+        syncs.clear()
+        rec.clear()
+        rec.enable()
+        tt.run_round(1, 0.0)
+        assert len(syncs) == 2 * (2 + 1) + 2 * 3 * 2
+    finally:
+        rec.enabled = was
+        rec.clear()
 
 
 def test_serving_metrics_move_as_jax(traced_pair):
