@@ -32,8 +32,7 @@ import time
 
 import torch
 
-CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+from ._host import BUILD_DIR, CSRC
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
