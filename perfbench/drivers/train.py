@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from perfbench import census, compare
+from perfbench import census, compare, host
 from perfbench.gen import graph as gen_graph
 from perfbench.reference.federated import Evaluator, Federation
 
@@ -274,13 +274,17 @@ class State:
 def setup(ctx) -> State:
     cfg, wl = ctx.cell.config, ctx.cell.workload
     arrays = gen_graph.load(ctx.root, cfg)
+    ctx.mark("graph")
     init = init_leaves(cfg, ctx.seed, ctx.device)
     counts = Counts()
     undo = [cut_epochs(ctx, counts)]
     tr = build_trainer(ctx, arrays, wl["strategy"], init)
+    ctx.mark("trainer")
     tr.pretrain_round()
+    ctx.mark("bootstrap")
     st = State(arrays, init, tr, counts, undo)
     st.program = first_round(tr, init, cfg["model"]["optimizer"]["b1"])
+    ctx.mark("first_round")
     if ctx.trace:
         undo += record_kernels(ctx) + record_regions(ctx, tr)
     return st
@@ -310,7 +314,8 @@ def window(ctx, st: State) -> dict:
         st.rounds += 1
         rounds.append({"t0": t0, "t1": t1, "minibatches": c.minibatches,
                        "seeds": c.seeds})
-        print(f"round {st.rounds - 1}: {t1 - t0} s", file=sys.stderr)
+        print(f"round {st.rounds - 1}: {t1 - t0} s cpu {host.current_cpu()}",
+              file=sys.stderr)
         if t1 - t_win >= ctx.seconds:
             break
     st.program["window_acc"] = stats.accuracy

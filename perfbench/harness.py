@@ -22,6 +22,8 @@ import pathlib
 import sys
 import time
 
+from perfbench import host
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: top-level module names that must not be loaded in a benchmark process
@@ -111,6 +113,12 @@ class Ctx:
     rec: "Recorder"
     #: where generated inputs are cached (``build/perfbench/`` below it)
     root: pathlib.Path = ROOT
+    #: (label, host time) at the end of each phase of set-up
+    phases: list = dataclasses.field(default_factory=list)
+
+    def mark(self, label: str) -> None:
+        """End set-up's phase ``label`` now."""
+        self.phases.append((label, time.perf_counter()))
 
 
 def say(*parts) -> None:
@@ -277,6 +285,15 @@ def breakdown(trace: dict, regions: dict, top: int = 10) -> dict:
             "idle_gaps": [[n, s] for n, s in gaps_by]}
 
 
+def phase_seconds(phases: list, t_start: float) -> dict:
+    """Seconds of each phase of set-up, from the process's start."""
+    out, prev = {}, t_start
+    for label, t in phases:
+        out[label] = t - prev
+        prev = t
+    return out
+
+
 # -- numbers and limits --------------------------------------------------------
 
 def quantile(xs, q: float) -> float:
@@ -337,12 +354,19 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     rec = Recorder(False)
     ctx = Ctx(cell, seed, seconds, trace, device, rec,
               root if data_root is None else data_root)
+    say("host: " + json.dumps({"cpu_model": host.cpu_model(),
+                               "allowed": host.allowed()}))
+    ctx.mark("imports")
     state = driver.setup(ctx)
     sync()
     setup_s = time.perf_counter() - t_start
+    say("setup phases: " + json.dumps(phase_seconds(ctx.phases, t_start)))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     tr: dict = {"events": [], "aligned": False}
+    gc_clock = host.GcClock()
+    before = host.snapshot()
+    gc_clock.start()
     with (device_trace(torch, 0, tr) if trace and cuda
           else contextlib.nullcontext()):
         rec.enabled = trace
@@ -352,12 +376,18 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         tr.setdefault("t0", t0)
         tr.setdefault("t1", time.perf_counter())
         rec.enabled = False
+    gc_clock.stop()
+    say("window host: " + json.dumps(dict(
+        host.describe(before, host.snapshot()), gc_count=gc_clock.count,
+        gc_s=gc_clock.seconds)))
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     attempted, failed = e2e.pop("attempted"), e2e.pop("failed")
     driver.release(state)
     if cuda:
         torch.cuda.empty_cache()
+    t_check = time.perf_counter()
     numbers = driver.check(ctx, state)
+    say(f"check: {time.perf_counter() - t_check} s")
     ok, checks = judge(numbers, cell.workload["limits"])
     dev = {"platform": "gpu" if cuda else device,
            "kind": torch.cuda.get_device_name(0) if cuda else device,

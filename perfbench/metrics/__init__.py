@@ -1,5 +1,7 @@
 """One reader per per-layer metric, ``<metric>.py`` with ``read(records)``
-returning the number, or None when the traced run holds nothing to read.
+returning the number, or None when the traced run holds nothing to read,
+and ``example()``: a record built from ``_example.py``'s base and the
+reading ``read`` must give on it, which the readers' test checks.
 
 ``records`` holds ``regions`` (the harness's host regions: label →
 [(start, end)] in ``perf_counter`` seconds), ``trace`` (the device

@@ -18,6 +18,12 @@ def span_seconds(rec: dict, name: str) -> float:
     return sum(d for n, _, d in rec.get("spans", ()) if n == name)
 
 
+def span_mean(rec: dict, name: str) -> float | None:
+    """Mean seconds of the spans ``name``; None when there is none."""
+    d = [d for n, _, d in rec.get("spans", ()) if n == name]
+    return sum(d) / len(d) if d else None
+
+
 def rounds_seconds(rec: dict) -> float:
     return sum(r["t1"] - r["t0"] for r in rec.get("rounds", ()))
 

@@ -2,6 +2,7 @@
 spans (copy, forward, backward, Adam, ending in a synchronise) over the
 window's minibatches."""
 
+from perfbench.metrics._example import base
 from perfbench.metrics._read import span_seconds
 
 
@@ -11,3 +12,8 @@ def read(rec):
     if not steps or t <= 0:
         return None
     return t / steps * 1e3
+
+
+def example():
+    """Epochs of 20 and 60 ms over 8 minibatches."""
+    return base(), 0.08 / 8 * 1e3

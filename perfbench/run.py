@@ -8,8 +8,11 @@ and its metrics are found by name from ``BENCHMARK.json``.  The last
 line of standard output is one JSON object (``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device``, with ``--trace 1`` also
 ``breakdown``, and ``checks`` last: each compared number with its
-limit); the same numbers are the last lines of standard error.  Without
-a CUDA card it exits non-zero and prints no result.
+limit); the same numbers are the last lines of standard error.  Before
+them standard error holds what tells a far-off run from its set's others
+(``host.py``): the host, set-up's phases, each round's seconds and the
+window's host readings.  Without a CUDA card it exits non-zero and prints
+no result.
 """
 
 import time
@@ -27,6 +30,12 @@ def _environment() -> None:
     """Build caches at fixed paths inside the checkout; one host thread
     for the numeric libraries, so the run's load is its one process."""
     build = ROOT / "build"
+    # the bytecode of every module the run imports, torch's included,
+    # compiled on a checkout's first run and read on the later ones: where
+    # the environment forbids writing it (PYTHONDONTWRITEBYTECODE) and the
+    # library ships none, each run compiles torch's sources anew
+    sys.pycache_prefix = str(build / "pycache")
+    sys.dont_write_bytecode = False
     os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
     os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
     os.environ["CUDA_CACHE_PATH"] = str(build / "cuda_cache")

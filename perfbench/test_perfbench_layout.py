@@ -5,9 +5,12 @@ dropped into a copy included, with no file edited."""
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -71,8 +74,26 @@ def test_files_are_found_by_name(bench):
         assert callable(harness.load_reader(ROOT, m["name"]).read)
 
 
+#: a per-layer metric's reader as a later change adds it: ``read`` and
+#: its example, built on the shared base record
+NEW_READER = '''"""The window's rounds."""
+
+from perfbench.metrics._example import base
+
+
+def read(rec):
+    return float(len(rec["rounds"])) or None
+
+
+def example():
+    return base(), 2.0
+'''
+
+
 def test_a_new_cell_config_and_metric_are_picked_up(bench, tmp_path):
-    """Adding files and entries is all a later cell needs."""
+    """Adding files and entries is all a later cell or metric needs: the
+    harness finds them, and the readers' test, run in the copy, checks
+    the new reader on its own example with no test edited."""
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     here = tmp_path / "perfbench"
@@ -83,8 +104,7 @@ def test_a_new_cell_config_and_metric_are_picked_up(bench, tmp_path):
     wl["name"] = "arxiv-sage3-e-train"
     (here / "workloads" / "arxiv-sage3-e-train.json").write_text(
         json.dumps(wl))
-    (here / "metrics" / "rounds.train.py").write_text(
-        "def read(rec):\n    return float(len(rec['rounds']))\n")
+    (here / "metrics" / "rounds.train.py").write_text(NEW_READER)
     new = json.loads(json.dumps(bench))
     new["configs"].append({"name": "arxiv-sage3", "source": "x",
                            "file": "perfbench/configs/arxiv-sage3.json",
@@ -105,3 +125,13 @@ def test_a_new_cell_config_and_metric_are_picked_up(bench, tmp_path):
     assert [m["name"] for m in cell.per_layer] == ["rounds.train"]
     reader = harness.load_reader(tmp_path, "rounds.train")
     assert reader.read({"rounds": [{}, {}]}) == 2.0
+    # the copy's own readers' test takes the new metric as it stands
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(new, indent=1))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         str(here / "test_perfbench_readers.py")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
+    for test in ("test_reader", "test_reader_with_nothing_to_read"):
+        assert f"{test}[rounds.train] PASSED" in run.stdout, run.stdout

@@ -1,74 +1,45 @@
-"""Each per-layer reader on a small recorded trace, the device timeline's
+"""Each per-layer reader that ``BENCHMARK.json`` names on the example it
+carries and on a record with nothing to read, the device timeline's
 arithmetic, and ``census.py`` against hand counts."""
 
 from __future__ import annotations
 
+import math
 import pathlib
 
 import pytest
 
 from perfbench import census, harness
+from perfbench.metrics import _example
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-CFG = {"peaks": {"fp32_flops_per_s": 1e6, "hbm_bytes_per_s": 1e3},
-       "model": {"hidden": 4, "num_layers": 2}, "graph": {"feat_dim": 3,
-                                                        "classes": 2}}
-
-
-def recorded() -> dict:
-    """Two rounds of 1 s and 3 s with 4 minibatches each; kernels of 0.5 s
-    of aggregation and 0.25 s of codec on the device; 8 s traced."""
-    events = [("segment_mean_csr_kernel(float const*)", 1.0, 0.25),
-              ("segment_mean_csr_bwd_kernel(x)", 2.0, 0.25),
-              ("quantize_quads_kernel(y)", 3.0, 0.25),
-              ("gemm", 3.1, 0.5)]
-    return {"config": CFG,
-            "rounds": [{"t0": 0.0, "t1": 1.0, "minibatches": 4},
-                       {"t0": 1.0, "t1": 4.0, "minibatches": 4}],
-            "regions": {"sample": [(0.0, 0.5), (1.0, 2.0)],
-                        "pull": [(2.0, 2.25)], "push": [(2.5, 2.75)]},
-            "spans": [("client.train_epoch", 0.0, 0.02),
-                      ("client.train_epoch", 1.0, 0.06),
-                      ("round.aggregate", 3.0, 0.4)],
-            "trace": {"events": events, "t0": 0.0, "t1": 8.0,
-                      "aligned": True},
-            "busy_s": 1.0, "window_s": 8.0,
-            "flops": 2_000_000, "agg_bytes": 250, "codec_bytes": 125}
-
-
-EXPECTED = {
-    "sample_share.train": 1.5 / 4 * 100,
-    "step_ms.train": 0.08 / 8 * 1e3,
-    "exchange_share.train": 0.5 / 4 * 100,
-    "aggregate_share.train": 0.4 / 4 * 100,
-    "idle_share.train": 7 / 8 * 100,
-    "agg_roofline.train": (250 / 1e3) / 0.5 * 100,
-    "codec_roofline.train": (125 / 1e3) / 0.25 * 100,
-    "mfu.train": 2.0 / 4 * 100,
-}
+#: the per-layer metrics ``BENCHMARK.json`` names: one reader file each,
+#: carrying its own example, so a new metric needs no edit here
+METRICS = sorted(m["name"] for m in harness.load_json(
+    ROOT / "BENCHMARK.json")["per_layer"])
 
 
 def test_every_metric_has_an_expected_reading(bench):
-    assert {m["name"] for m in bench["per_layer"]} == set(EXPECTED)
+    assert {m["name"] for m in bench["per_layer"]} == set(METRICS)
+    for metric in METRICS:
+        rec, want = harness.load_reader(ROOT, metric).example()
+        assert isinstance(want, float) and math.isfinite(want), metric
 
 
-@pytest.mark.parametrize("metric", sorted(EXPECTED))
+@pytest.mark.parametrize("metric", METRICS)
 def test_reader(metric):
-    got = harness.load_reader(ROOT, metric).read(recorded())
-    assert got == pytest.approx(EXPECTED[metric], rel=1e-12)
+    reader = harness.load_reader(ROOT, metric)
+    rec, want = reader.example()
+    assert reader.read(rec) == pytest.approx(want, rel=1e-12)
 
 
-@pytest.mark.parametrize("metric", sorted(EXPECTED))
+@pytest.mark.parametrize("metric", METRICS)
 def test_reader_with_nothing_to_read(metric):
-    empty = {"config": CFG, "rounds": [], "regions": {}, "spans": [],
-             "trace": {"events": [], "t0": 0.0, "t1": 1.0, "aligned": True},
-             "busy_s": 0.0, "window_s": 1.0}
-    assert harness.load_reader(ROOT, metric).read(empty) is None
+    assert harness.load_reader(ROOT, metric).read(_example.empty()) is None
 
 
 def test_busy_and_breakdown():
-    rec = recorded()
-    tr = rec["trace"]
+    tr = _example.base()["trace"]
     assert harness.busy_seconds(tr["events"], 0.0, 8.0) == pytest.approx(1.1)
     b = harness.breakdown(tr, {"sample": [(0.0, 0.9)], "push": [(4.0, 8.0)],
                                "step": [(0.0, 8.0)]})
@@ -95,7 +66,7 @@ def test_census_by_hand():
     assert census.gather_quantize_bytes(2, 4) == 8 + 32 + 8 + 8
     assert census.dequant_scatter_bytes(2, 4) == 8 + 8 + 8 + 32
     # two layers 3 -> 4 -> 2 over (dst rows, kept edges) (6, 10), (2, 5)
-    dims = census.layer_dims(CFG)
+    dims = census.layer_dims(_example.CONFIG)
     assert dims == [3, 4, 2]
     fwd = (2 * 6 * 3 * 4 + 10 * 3) + (2 * 2 * 4 * 2 + 5 * 4)
     assert census.blocks_flops(dims, [(6, 10), (2, 5)], 1) == fwd

@@ -1,7 +1,8 @@
 """The program's own spans in a traced run at a tiny size on the CPU:
 each cell's records hold the spans of the sampler, the training step and
-the exchange, and the spans land on the harness's clock inside the host
-regions that time the same work."""
+the exchange, every metric that reads spans finds them, and the spans
+land on the harness's clock inside the host regions that time the same
+work."""
 
 from __future__ import annotations
 
@@ -57,6 +58,11 @@ def test_each_cell_records_the_program_spans(bench, data_root, name,
     exchanges = name != "reddit-d-train"
     for span in EXCHANGE:
         assert (span in names) == exchanges, span
+    # every metric that reads the program's spans finds them
+    cell = harness.find_cell(bench, name)
+    span_metrics = {m["name"] for m in cell.per_layer
+                    if m["source"] == "program_span"}
+    assert span_metrics <= set(res["metrics"]), span_metrics
 
 
 def _inside(inner: tuple, outer: tuple) -> bool:
